@@ -15,8 +15,10 @@ indexed deepest-first (layer 0 is driven by U):
   layer h:  xbar^h_t = [x^h_{t-1..t-Lh}, x^{h-1}_t..x^{h-1}_{t-Lh+1}]
   output :  y_t      = f_out(x^{H-1}_t .. x^{H-1}_{t-Lout+1}) + eps_y
 
-:func:`freerun` is the serving path: posteriors once, then a closed-loop
-moment-matched rollout, one Python step per test input.
+:func:`elbo` (and :func:`neg_elbo`, the training loss) is differentiable on
+every device: on float32 CUDA tensors its Psi2 sums run through the kernels K1
+and K2. :func:`freerun` is the serving path: posteriors once, then a
+closed-loop moment-matched rollout, one Python step per test input.
 
 Back-constraints (the MLP encoder, ``back_cstr``/``amortize_var``) are not
 ported yet and raise ``NotImplementedError``.
@@ -39,7 +41,7 @@ from ..ops.psi_stats import psi_statistics
 from ..params import np_positive_inv, positive
 from .sparse_gp import kmeans_init
 
-__all__ = ["LayerSpec", "RGPConfig", "init_params", "elbo", "freerun", "predict_train",
+__all__ = ["LayerSpec", "RGPConfig", "init_params", "elbo", "neg_elbo", "freerun", "predict_train",
            "deep_rgp_config", "compute_whitenings"]
 
 
@@ -254,6 +256,11 @@ def elbo(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128, whitening=
         mu0, lam0 = mu_full[:L], lam_full[:L]
         total = total - 0.5 * (mu0 * mu0 + lam0 - torch.log(lam0) - 1.0).sum()
     return total
+
+
+def neg_elbo(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128):
+    """The training loss, ``-elbo``."""
+    return -elbo(cfg, params, Y, U, block=block)
 
 
 def compute_whitenings(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128,

@@ -9,11 +9,12 @@ for q(x_t) = N(mu_t, diag(s_t)). Certain inputs (``s=None``) give Psi1 = K(mu,
 Z) and Psi2 = K^T K.
 
 Dispatch of the RBF Psi2 time sum on uncertain inputs: a float32 CUDA tensor
-goes to the hand-written kernel K1 (:mod:`rgp_tpu_torch.ops.cuda.psi2`); a CPU
-tensor, or a float64 CUDA tensor, goes to the plain chunked torch path (K1
-itself takes float32 only, as the JAX package's Pallas route did). The plain
-path counts its calls in ``plain_psi2_calls`` so a run can show which route
-it took.
+goes to the hand-written kernels (:mod:`rgp_tpu_torch.ops.cuda.psi2`): K1 for
+the value and, when gradients are taken, K2 for the backward. A CPU tensor, or
+a float64 CUDA tensor, goes to the plain chunked torch path, which recomputes
+each chunk in the backward (the kernels take float32 only, as the JAX
+package's Pallas route did). The plain path counts its calls in
+``plain_psi2_calls`` so a run can show which route it took.
 """
 
 from __future__ import annotations

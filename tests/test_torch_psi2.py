@@ -5,9 +5,11 @@ Tolerances: the plain K1 version in float32 against the Pallas kernel in
 interpret mode at the Pallas tests' tolerance (rtol 2e-4, atol 2e-5,
 tests/test_pallas.py); in float64 the T-split reduce changes only the
 summation order (rtol 1e-10); psi01 / psi2_per_t are the same closed forms
-(rtol 1e-12). The CUDA kernel itself is held against the plain version on the
-card by ``test_k1_kernel_matches_plain_on_card`` (marker ``cuda``) and by
-chip_smoke.py.
+(rtol 1e-12). K2's plain version and the autograd Function's gradients: the
+Pallas backward tests' 3e-4 in float32 (tests/test_pallas.py), 1e-9 in
+float64, where only the summation order differs. The CUDA kernels themselves
+are held against the plain versions on the card by the tests marked ``cuda``
+and by chip_smoke.py.
 """
 
 import jax
@@ -18,7 +20,7 @@ import torch
 
 from rgp_tpu.kernels import RBF as JRBF
 from rgp_tpu.ops import psi_stats as jps
-from rgp_tpu.ops.pallas.psi2 import _psi2_pallas_raw
+from rgp_tpu.ops.pallas.psi2 import _psi2_bwd_raw, _psi2_pallas_raw
 from rgp_tpu_torch.kernels import RBF
 from rgp_tpu_torch.ops import psi_stats
 from rgp_tpu_torch.ops.cuda import psi2
@@ -107,14 +109,82 @@ def test_cpu_dispatch_takes_plain_path(rng, dtype):
     assert psi2.launches == 0
 
 
-def test_rbf_psi2_sum_refuses_grad(rng):
-    mu, s, Z, _, tp = _inputs(rng, 10, 4, 2)
+def test_plain_k2_matches_pallas_interpret(rng):
+    T, M, Q = 40, 24, 3
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
+    G = rng.standard_normal((M, M))
+    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z), torch.tensor(G + G.T))]
+    assert psi2.bwd_split(T, M)[0] > 1  # the ordered reduce over T ranges is exercised
+    ours = psi2.psi2_time_sum_bwd(*args32)  # CPU tensors -> the plain version
+    ref = _psi2_bwd_raw(*[jnp.asarray(x.numpy()) for x in args32], bt=8, bm=64, interpret=True)
+    for a, b in zip(ours, ref):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-4, atol=3e-4)
+
+
+def _jax_psi2_grads(jp, Z, mu, s, G):
+    Q = Z.shape[1]
+
+    def f(p, Z_, mu_, s_):
+        return jnp.sum(jps.psi_statistics(JRBF(input_dim=Q), p, Z_, mu_, s_, block=None).psi2 * G)
+
+    return jax.jit(jax.grad(f, argnums=(0, 1, 2, 3)))(jp, jnp.asarray(Z), jnp.asarray(mu), jnp.asarray(s))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_psi2_function_grads_match_jax(rng, dtype):
+    """Gradients of sum(Psi2 * G) for (p, Z, mu, s) through the autograd
+    Function (CPU tensors: the plain K1/K2 versions) against jax.grad of the
+    JAX package's psi statistics, at a shape that cuts T into several ranges
+    and M into a ragged tile."""
+    T, M, Q = 70, 37, 4
+    mu, s, Z, jp, tp = _inputs(rng, T, M, Q, log_ls_shift=0.4)
+    G = rng.standard_normal((M, M))
+    assert psi2.t_split(T, M)[0] > 1 and psi2.bwd_split(T, M)[0] > 1
+    ref = _jax_psi2_grads(jp, Z, mu, s, jnp.asarray(G))
+    leaves = {k: v.to(dtype).requires_grad_() for k, v in tp.items()}
+    Zt, mut, st = (torch.tensor(x, dtype=dtype, requires_grad=True) for x in (Z, mu, s))
+    if dtype == torch.float64:  # the Function in float64 (the plain versions take any dtype)
+        out = psi2.RBFPsi2Sum.apply(*psi2.rbf_psi2_precompute(leaves, Zt, mut, st), Zt)
+        tol = dict(rtol=1e-9, atol=0)
+    else:  # the production entry: kernels' arithmetic in float32
+        out = psi2.rbf_psi2_sum(leaves, Zt, mut, st)
+        tol = dict(rtol=3e-4, atol=0)
+    assert out.dtype == dtype
+    (out * torch.tensor(G, dtype=dtype)).sum().backward()
+    ours = [leaves["log_ls"].grad, leaves["log_var"].grad, Zt.grad, mut.grad, st.grad]
+    refs = [ref[0]["log_ls"], ref[0]["log_var"], ref[1], ref[2], ref[3]]
+    for a, b in zip(ours, refs):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.double().numpy(), b, atol=tol["rtol"] * np.abs(b).max(), rtol=tol["rtol"])
+
+
+def test_psi2_function_gradcheck(rng):
+    T, M, Q = 11, 5, 2
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
+    args = [x.detach().clone().requires_grad_() for x in (*pre, torch.tensor(Z))]
+    assert torch.autograd.gradcheck(psi2.RBFPsi2Sum.apply, args, eps=1e-6, atol=1e-7)
+
+
+def test_psi2_function_takes_a_strided_cotangent(rng):
+    """Autograd may hand the backward an expanded cotangent (here the one of
+    ``out.sum()``); the backward must read it as a dense matrix."""
+    mu, s, Z, _, tp = _inputs(rng, 20, 6, 2)
     Zt = torch.tensor(Z, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        psi2.rbf_psi2_sum(tp, Zt, torch.tensor(mu), torch.tensor(s))
-    with torch.no_grad():
-        out = psi2.rbf_psi2_sum(tp, Zt, torch.tensor(mu), torch.tensor(s))
-    assert out.dtype == torch.float64 and out.shape == (4, 4)
+    psi2.rbf_psi2_sum(tp, Zt, torch.tensor(mu), torch.tensor(s)).sum().backward()
+    Z2 = torch.tensor(Z, requires_grad=True)
+    out = psi2.rbf_psi2_sum(tp, Z2, torch.tensor(mu), torch.tensor(s))
+    torch.autograd.backward(out, torch.ones(6, 6, dtype=out.dtype))
+    np.testing.assert_array_equal(Zt.grad.numpy(), Z2.grad.numpy())
+
+
+@pytest.mark.parametrize("T,M", [(1, 1), (7, 100), (512, 100), (65, 130), (2048, 256), (100000, 3)])
+def test_bwd_split_covers_t_in_whole_stages(T, M):
+    n_split, t_per = psi2.bwd_split(T, M)
+    assert n_split >= 1 and t_per % 8 == 0
+    assert (n_split - 1) * t_per < T <= n_split * t_per
 
 
 @pytest.mark.parametrize("T,M", [(1, 1), (7, 100), (512, 100), (513, 16), (2048, 256), (100000, 3)])
@@ -124,20 +194,26 @@ def test_t_split_covers_t_exactly(T, M):
     assert (n_split - 1) * t_per < T <= n_split * t_per
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "q"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "q", "gs_shape", "gs_contiguous"])
 def test_kernel_argument_checks(rng, bad):
     T, M, Q = 9, 5, 3
     args = [torch.zeros(T), torch.zeros(T, M), torch.zeros(M, M), torch.zeros(T, Q), torch.zeros(M, Q)]
+    Gs = torch.zeros(M, M)
+    psi2._check(*args, Gs)
     if bad == "dtype":
         args[0] = args[0].double()
     elif bad == "shape":
         args[1] = torch.zeros(T, M + 1)
     elif bad == "contiguous":
         args[2] = torch.zeros(M, 2 * M)[:, ::2]
-    else:
+    elif bad == "q":
         args[3], args[4] = torch.zeros(T, psi2.MAX_Q + 1), torch.zeros(M, psi2.MAX_Q + 1)
+    elif bad == "gs_shape":
+        Gs = torch.zeros(M, M + 1)
+    else:
+        Gs = torch.zeros(M, 2 * M)[:, ::2]
     with pytest.raises((TypeError, ValueError)):
-        psi2._check(*args)
+        psi2._check(*args, Gs)
 
 
 @pytest.mark.cuda
@@ -157,3 +233,25 @@ def test_k1_kernel_matches_plain_on_card(rng):
     ref = psi2.psi2_time_sum_plain(*[x.double() for x in args32])
     np.testing.assert_allclose(k.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4,
                                atol=2e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_k2_kernel_matches_plain_on_card(rng):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    T, M, Q = 65, 130, 5
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    dev = torch.device("cuda")
+    pre = psi2.rbf_psi2_precompute({k: v.to(dev) for k, v in tp.items()}, torch.tensor(Z, device=dev),
+                                   torch.tensor(mu, device=dev), torch.tensor(s, device=dev))
+    G = rng.standard_normal((M, M))
+    args32 = [x.to(torch.float32).contiguous()
+              for x in (*pre, torch.tensor(Z, device=dev), torch.tensor(G + G.T, device=dev))]
+    n0 = psi2.bwd_launches
+    k = psi2.psi2_time_sum_bwd(*args32)
+    torch.cuda.synchronize()
+    assert psi2.bwd_launches == n0 + 1
+    ref = psi2.psi2_time_sum_bwd_plain(*[x.double() for x in args32])
+    for a, b in zip(k, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=3e-4,
+                                   atol=3e-5 * float(b.abs().max()))
