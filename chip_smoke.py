@@ -13,13 +13,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 3. Hold K1 and K2 against their plain PyTorch versions, run in float64 on the
    card from the same float32 inputs, at the config-1 layer shapes (T, M, Q) =
    (512, 100, 20) and (512, 100, 1), a shape that does not align to tiles
-   (65, 130, 5) and a production shape (2048, 256, 32). Tolerance per element:
-   K1 |k - p| <= 2e-4 |p| + 2e-5 max|p|; K2, all four outputs with a random
-   cotangent, 3e-4 |p| + 3e-5 max|p|. Time each kernel and its plain float32
-   version (CUDA events, warm, median of 30) and compute each bound. Then the
-   autograd Function's gradients for (p, Z, mu, s) (K1 + K2, float32) against
-   autograd of the plain chunked path (float64) at the config-1 layer shapes,
-   at K2's tolerance.
+   (65, 130, 5) and a production shape (2048, 256, 32), and at shapes whose
+   K2 columns do not fit in shared memory, (40, 600, 128) (both kernels) and
+   (24, 1200, 20) (K2). Tolerance per element: K1 |k - p| <= 2e-4 |p| +
+   2e-5 max|p|, and its output exactly symmetric; K2, all five outputs with a
+   random cotangent, 3e-4 |p| + 3e-5 max|p|, and a transposed and an expanded
+   cotangent giving the bits of their dense copies. Per kernel and shape:
+   the wrapper time and the plain float32 version's (CUDA events, warm,
+   median of 30), the device time and device launches per call
+   (torch.profiler; each kernel must be one launch a call, alone), a rerun
+   that must give the same bits, and the bound. Then the autograd Function's
+   gradients for (p, Z, mu, s) (K1 + K2, float32) against autograd of the
+   plain chunked path (float64) at the config-1 layer shapes, at K2's
+   tolerance.
 4. Serve config 1 in float32 on the card: actuator data,
    ``deep_rgp_config(wins=[0,10], u_win=10, num_inducing=100)``,
    ``init_params(seed=0)``, then ``elbo`` (forward), ``compute_whitenings``,
@@ -49,6 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3 alone and prints
+their rows, for comparing the kernels of two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -70,6 +79,8 @@ _TRAIN_STEPS = 1000
 _FP32_OPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores
 _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 _K1_SHAPES = [(512, 100, 20), (512, 100, 1), (65, 130, 5), (2048, 256, 32)]
+# shapes whose K2 columns do not fit in shared memory: the kernel streams them
+_K2_STREAM_SHAPES = [(40, 600, 128), (24, 1200, 20)]
 
 
 def fail(msg):
@@ -118,6 +129,59 @@ def time_host_ms(fn, n):
     return statistics.median(times)
 
 
+def _device_ops(fn, calls):
+    """(device us, device ops, {name: count}) that torch.profiler records over
+    ``calls`` back-to-back calls of ``fn``: CUDA kernels, copies and fills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, ops, names = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            us += e.self_device_time_total
+            ops += e.count
+            names[e.key] = e.count
+    return us, ops, names
+
+
+def device_per_call(fn, n=20, trials=5):
+    """(device ms per call, device launches per call, {device op name: count})
+    of ``fn``, after a warm-up call. Seen on the card: CUPTI now and then
+    drops records, up to half of a 20-call window, or a whole window. So the
+    launches per call are the most that ``trials`` profiles of one call each
+    record, and the device time per call is the mean duration of the ops
+    recorded over ``n`` back-to-back calls times the launches per call (with
+    no record dropped, the sum over the n calls divided by n). Host time
+    between the calls is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(_device_ops(fn, 1)[1] for _ in range(trials))
+    for attempt in range(3):
+        us, ops, names = _device_ops(fn, n)
+        if ops > 0 and per_call > 0:
+            if ops != per_call * n:
+                print(f"device_per_call: the profiler kept {ops} of {per_call * n} device records")
+            return us / ops * per_call / 1e3, per_call, names
+        print(f"device_per_call: torch.profiler returned no device records (attempt {attempt + 1})")
+    fail("torch.profiler recorded no device operation in 3 attempts: no device time")
+
+
+def check_one_launch(per_call, names, kernel, shape):
+    """One device launch a call: the kernel is the only device op."""
+    check(per_call == 1 and len(names) == 1 and kernel in next(iter(names)),
+          f"{kernel} at (T,M,Q)={shape}: {per_call} device ops per call, {names}; want the kernel alone, once")
+
+
+def bit_identical(a, b):
+    """Two results of the same call on the same inputs are equal bit for bit."""
+    if isinstance(a, (tuple, list)):
+        return all(bit_identical(x, y) for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
 def profile_device(fn, label, steps):
     """One profiled call of ``fn``: device busy time (the sum of CUDA kernel
     and copy time from torch.profiler, user annotations left out) against the
@@ -155,9 +219,10 @@ def profile_device(fn, label, steps):
 
 def k1_bound_ms(T, M, Q):
     """Least time for K1's work: (2Q+6) FP32 operations plus one exp (counted
-    as one operation) per (t, m, n) element at the FP32 peak, against each
-    input read once and the output written once at the memory rate."""
-    ops = T * M * M * (2 * Q + 6 + 1)
+    as one operation) per element (t, m, n) with m <= n (out is symmetric, so
+    T M(M+1)/2 elements are all the function needs) at the FP32 peak, against
+    each input read once and the output written once at the memory rate."""
+    ops = T * M * (M + 1) // 2 * (2 * Q + 6 + 1)
     nbytes = 4 * (T + T * M + M * M + T * Q + M * Q + M * M)
     t_ops, t_bytes = ops / _FP32_OPS_PER_S, nbytes / _HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -169,7 +234,7 @@ def phase_k1(psi2):
 
     dev = torch.device("cuda")
     rows = []
-    for i, (T, M, Q) in enumerate(_K1_SHAPES):
+    for i, (T, M, Q) in enumerate(_K1_SHAPES + _K2_STREAM_SHAPES[:1]):
         rng = np.random.default_rng(100 + i)
         mu = torch.as_tensor(rng.standard_normal((T, Q)), device=dev)
         s = torch.as_tensor(rng.uniform(0.05, 0.4, (T, Q)), device=dev)
@@ -187,7 +252,9 @@ def phase_k1(psi2):
         pmax = ref.abs().max()
         tol = 2e-4 * ref.abs() + 2e-5 * pmax
         ok = bool(torch.isfinite(k).all()) and bool((err <= tol).all())
+        same = bit_identical(k, psi2.psi2_time_sum(*args32))
         k_ms = time_cuda_ms(lambda: psi2.psi2_time_sum(*args32))
+        dev_ms, per_call, names = device_per_call(lambda: psi2.psi2_time_sum(*args32))
         plain_ms = time_cuda_ms(lambda: psi2.psi2_time_sum_plain(*args32))
         bound_ms, bound_by = k1_bound_ms(T, M, Q)
         row = {
@@ -195,20 +262,25 @@ def phase_k1(psi2):
             "max_abs_err": float(err.max()),
             "max_rel_err": float(err.max() / pmax),
             "worst_err_over_tol": float((err / tol).max()),
-            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": k_ms, "device_ms": dev_ms, "launches_per_call": per_call, "bit_identical": same,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         print("k1", json.dumps(row))
         check(ok, f"K1 disagrees with its plain version at (T,M,Q)={T, M, Q}: {row}")
+        check(same, f"K1 gave different bits on a rerun at (T,M,Q)={T, M, Q}")
+        check_one_launch(per_call, names, "psi2_fwd_kernel", (T, M, Q))
+        check(bool(torch.equal(k, k.T)), f"K1's output is not exactly symmetric at (T,M,Q)={T, M, Q}")
         rows.append(row)
     return rows
 
 
 def k2_bound_ms(T, M, Q):
     """Least time for K2's work: (4Q+8) FP32 operations plus one exp per
-    (t, m, n) element at the FP32 peak, against the inputs (base, E, D1, w, Z,
-    Gs) read once and the outputs (dbase, dE, dw, dzC) written once."""
-    ops = T * M * M * (4 * Q + 8 + 1)
-    nbytes = 4 * (2 * T + 2 * T * M + 2 * M * M + 2 * T * Q + 2 * M * Q)
+    (t, m, n) element, and g + g^T and -out g per (m, n), at the FP32 peak,
+    against the inputs (base, E, D1, w, Z, g, out) read once and the outputs
+    (dbase, dE, dD1, dw, dzC) written once."""
+    ops = T * M * M * (4 * Q + 8 + 1) + 2 * M * M
+    nbytes = 4 * (2 * T + 2 * T * M + 4 * M * M + 2 * T * Q + 2 * M * Q)
     t_ops, t_bytes = ops / _FP32_OPS_PER_S, nbytes / _HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -222,13 +294,15 @@ def _within(k, p, rel=3e-4, rel_max=3e-5):
 
 
 def phase_k2(psi2):
-    """Phase 3b: K2 against its plain version at K1's shapes, all four
-    outputs, with a random cotangent; returns per-shape results."""
+    """Phase 3b: K2 against its plain version at K1's shapes and at shapes it
+    streams, all five outputs, with a random cotangent; a transposed and an
+    expanded cotangent against their dense copies; returns per-shape
+    results."""
     from rgp_tpu_torch.kernels import RBF
 
     dev = torch.device("cuda")
     rows = []
-    for i, (T, M, Q) in enumerate(_K1_SHAPES):
+    for i, (T, M, Q) in enumerate(_K1_SHAPES + _K2_STREAM_SHAPES):
         rng = np.random.default_rng(200 + i)
         mu = torch.as_tensor(rng.standard_normal((T, Q)), device=dev)
         s = torch.as_tensor(rng.uniform(0.05, 0.4, (T, Q)), device=dev)
@@ -236,29 +310,41 @@ def phase_k2(psi2):
         G = torch.as_tensor(rng.standard_normal((M, M)), device=dev)
         p = RBF(input_dim=Q).init(lengthscale=math.sqrt(Q), dtype=torch.float64, device=dev)
         pre = psi2.rbf_psi2_precompute(p, Z, mu, s)
-        args32 = [x.to(torch.float32).contiguous() for x in (*pre, Z, G + G.T)]
+        args32 = [x.to(torch.float32).contiguous() for x in (*pre, Z, G)]
+        args32.append(psi2.psi2_time_sum(*args32[:5]))  # out, which dD1 reads
         args64 = [x.to(torch.float64) for x in args32]
 
         k = psi2.psi2_time_sum_bwd(*args32)
         torch.cuda.synchronize()
         ref = psi2.psi2_time_sum_bwd_plain(*args64)
         per = {}
-        for name, a, b in zip(("dbase", "dE", "dw", "dzC"), k, ref):
+        for name, a, b in zip(("dbase", "dE", "dD1", "dw", "dzC"), k, ref):
             ok, err, worst = _within(a, b)
             per[name] = {"ok": ok, "max_abs_err": err, "max_rel_err": err / float(b.abs().max()),
                          "worst_err_over_tol": worst}
+        same = bit_identical(k, psi2.psi2_time_sum_bwd(*args32))
         k_ms = time_cuda_ms(lambda: psi2.psi2_time_sum_bwd(*args32))
+        dev_ms, per_call, names = device_per_call(lambda: psi2.psi2_time_sum_bwd(*args32))
         plain_ms = time_cuda_ms(lambda: psi2.psi2_time_sum_bwd_plain(*args32))
         bound_ms, bound_by = k2_bound_ms(T, M, Q)
+        if i == 0:  # the cotangent is read through its strides
+            g32, out32 = args32[5], args32[6]
+            for label, g in (("transposed", g32.T), ("expanded", g32[:1, :1].expand(M, M))):
+                same_g = bit_identical(psi2.psi2_time_sum_bwd(*args32[:5], g, out32),
+                                       psi2.psi2_time_sum_bwd(*args32[:5], g.contiguous(), out32))
+                check(same_g, f"K2 with a {label} cotangent differs from its dense copy")
         row = {
-            "T": T, "M": M, "Q": Q, "outputs": per,
+            "T": T, "M": M, "Q": Q, "outputs": per, "plan": psi2.bwd_plan(M, Q),
             "max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "max_rel_err": max(v["max_rel_err"] for v in per.values()),
-            "ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": k_ms, "device_ms": dev_ms, "launches_per_call": per_call, "bit_identical": same,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         print("k2", json.dumps(row))
         check(all(v["ok"] for v in per.values()),
               f"K2 disagrees with its plain version at (T,M,Q)={T, M, Q}: {per}")
+        check(same, f"K2 gave different bits on a rerun at (T,M,Q)={T, M, Q}")
+        check_one_launch(per_call, names, "psi2_bwd_kernel", (T, M, Q))
         rows.append(row)
     return rows
 
@@ -530,7 +616,34 @@ def phase_golden():
         check(traj[i]["rel"] <= 1e-6, f"f64 golden trajectory step {i}: {traj[i]}")
 
 
+def ptxas_report(log):
+    """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
+    instance, from the ptxas report nvcc wrote beside the library."""
+    import re
+
+    out, width = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?kernelILi(\d+)E", line)
+        if m:
+            width = int(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and width is not None:
+            out.setdefault(width, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and width is not None:
+            out.setdefault(width, {})["registers"] = int(m.group(1))
+    return out
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build K1 and K2, run phases 1-3 only (checks and times at the four shapes), "
+                         "print them and stop: for comparing two checkouts' kernels in one call")
+    kernels_only = ap.parse_args().kernels_only
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -557,16 +670,18 @@ def main():
     libs = psi2.build()
     build_s = time.perf_counter() - t0
     print(f"kernel build (K1 and K2 at once): {build_s:.1f} s")
+    ptxas = {}
     for name, so in libs.items():
         print(f"  {name}: {os.path.relpath(so, root)}")
         log = so.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
-                    print("  ptxas:", line.strip())
+        ptxas[name] = ptxas_report(log.read_text()) if log.exists() else "not reported"
+        print(f"  ptxas {name} (Q width: registers, spill bytes):", json.dumps(ptxas[name]))
 
     k1_rows = phase_k1(psi2)  # phase 3
     k2_rows = phase_k2(psi2)
+    if kernels_only:
+        print("kernels only", json.dumps({"card": card, "k1": k1_rows, "k2": k2_rows}))
+        return
     phase_vjp(psi2, psi_stats)
     serving = phase_serving(psi2, psi_stats)  # phase 4
     phase_f32_lane(psi2)
@@ -582,11 +697,12 @@ def main():
             "launches": launches, "launches_by_path": by_path,
             "shape": [main_row["T"], main_row["M"], main_row["Q"]],
             "max_abs_err": main_row["max_abs_err"], "max_rel_err": main_row["max_rel_err"],
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+            "launches_per_call": main_row["launches_per_call"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None,
             "library_note": "no single PyTorch call computes it",
-            "shapes": rows, "card": card,
+            "shapes": rows, "ptxas": ptxas[name], "card": card,
         }
 
     print(json.dumps({"kernels": [

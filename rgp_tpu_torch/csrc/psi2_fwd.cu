@@ -9,30 +9,53 @@
 // summed over T without materialising the (T, M, M) intermediate.
 //
 // What bounds it on this card: per element (t, m, n) the function needs about
-// 2Q+6 FP32 operations plus one exp, over T*M^2 elements; its bytes are
-// O(TM + M^2 + TQ), negligible. At config 1 (T=512, M=100, Q<=20) that is
-// 5.1M elements, a few microseconds of FP32/SFU work, so launch overhead
-// dominates there. At T=2048, M=256, Q=32 it is 134M elements, about 9 GFLOP.
+// 2Q+6 FP32 operations plus one exp; out is symmetric (D1, E[t,m] + E[t,n]
+// and C all are), so the least work is T * M(M+1)/2 elements. Its bytes are
+// O(TM + M^2 + TQ), negligible: it is bound by FP32 issue. At config 1
+// (T=512, M=100, Q<=20) that is a few microseconds, so the launch is a large
+// share there; at T=2048, M=256, Q=32 it is 67M elements, about 4.8 GFLOP.
 //
 // What the design does about it:
-//  * The TPU grid carried the t-sum in VMEM scratch over one sequential grid
-//    axis; at M=100 that was a single output tile, which here would occupy one
-//    SM of 132. So T is split across blocks as well as the M x M tiles: block
-//    (bx, by, bz) owns a 16x16 output tile (one element per thread) and a
-//    contiguous T range. Each split writes its own partial (n_split, M, M);
-//    a second small kernel sums the partials in a fixed order. No float
-//    atomics, so results are identical from run to run.
-//  * C is separable: z[m,q] z[n,q] does not depend on t, so each thread forms
-//    zz[q] = z[m,q] z[n,q] once, in registers (the Q loop is unrolled up to a
-//    compile-time cap QMAX), and each timestep costs Q FFMAs. FFMA in full
-//    FP32: no TF32 and no reduced-precision tensor-core path, because a 1e-3
-//    relative error in Psi2 breaks the stability of the collapsed bound.
-//  * w, base and the tile's E rows are staged through shared memory in stages
-//    of kStage timesteps; w rows are padded to a multiple of 4 floats and read
-//    as float4 broadcasts, so shared-memory loads do not bound the Q loop.
-//  * expf, not __expf: expf is accurate to about 2 ulp over the whole range,
-//    __expf loses accuracy as |x| grows, and the sum of exps is what the bound
-//    differentiates. The build uses no --use_fast_math.
+//  * Symmetry. Only output tile pairs with m tile <= n tile are computed (10
+//    of 16 at M=100, 36 of 64 at M=256, with 32-wide tiles); each value is
+//    written to (m, n) and (n, m), and in a diagonal tile only the m <= n
+//    half is kept, so out is exactly symmetric. (At M=100 the 32-wide tiles
+//    cover 128, so the pairs hold about as many elements as the full matrix;
+//    the saving shows from M of a few hundred.)
+//  * Register tiling. A 32 x 32 output tile a block (Q <= 32; 16 x 16 above).
+//    Each thread owns a patch with zz[q] = z[m,q] z[n,q] of its elements in
+//    registers (the t-invariant half of C), so a timestep costs exactly Q
+//    FFMAs an element, and one float4 read of the w row, the E values of its
+//    rows and columns and base serve the whole patch. Forming w_t * z_m per
+//    patch instead would cost 1.5 Q FP32 operations an element at 2 x 2 and
+//    keep z in shared memory. zz takes (patch size) x Q registers, so the
+//    patch follows Q: 2 x 2 on 16 x 16 threads for Q <= 24 (two blocks per
+//    SM, __launch_bounds__(256, 2)), 1 x 2 on 32 x 16 threads for Q <= 32 (one
+//    512-thread block per SM, <= 128 registers), one element a thread above.
+//    Each element's sum over q runs in 4 / (patch size) independent chains,
+//    so every thread has 4 FFMA chains in flight. Q runs at the compile-time
+//    width qmax_of(Q) (4, 8, 16, 20, 24, 32, 64 or 128), the w rows are
+//    zero-padded to it and the q loop covers it whole: a run-time Q test
+//    there cost a branch per float4.
+//  * Staging. w, base and the tile's E rows and columns go through shared
+//    memory in stages of kStage timesteps, by cp.async into two buffers: the
+//    copy of stage k+1 is in flight while stage k computes.
+//  * T split, one launch, deterministic. The TPU grid carried the t-sum over a
+//    sequential grid axis; at M=100 that is one output tile, which here would
+//    occupy one SM of 132. So T is split across blocks as well: block
+//    (pair, split) writes its partial tile, then takes a ticket (an integer
+//    atomicAdd on the pair's counter after __threadfence); the block that is
+//    last for its pair sums the pair's partials in ascending split order,
+//    writes both halves and resets the counter to 0, so no memset launch and
+//    no float atomics are needed and the same inputs give the same bits. The
+//    plain version sums the same T ranges in the same order.
+//  * FFMA in full FP32: no TF32, whose 1e-3 relative error in Psi2 breaks
+//    the stability of the collapsed bound. Split-precision 3xTF32 mma for C_t
+//    is not used yet (see psi2_bwd.cu): the exp and the sums around it stay on
+//    the FP32 pipe either way.
+//    expf, not __expf: expf is accurate to about 2 ulp over the whole range,
+//    and the sum of exps is what the bound differentiates. The build uses no
+//    --use_fast_math.
 //  * The ragged T and M edges are masked in the kernel; nothing is padded on
 //    the host.
 
@@ -40,121 +63,262 @@
 
 namespace {
 
-constexpr int kTile = 16;    // output tile edge; one thread per element
 constexpr int kStage = 32;   // timesteps staged in shared memory at a time
 constexpr int kMaxQ = 128;   // largest input width the kernel takes
 
-template <int QMAX>
-__global__ void __launch_bounds__(kTile * kTile)
-psi2_partial_kernel(const float* __restrict__ base, const float* __restrict__ E,
-                    const float* __restrict__ D1, const float* __restrict__ w,
-                    const float* __restrict__ Z, float* __restrict__ partial,
-                    int T, int M, int Q, int t_per_split) {
-  constexpr int kQP = (QMAX + 3) / 4 * 4;
-  __shared__ __align__(16) float w_s[kStage * kQP];
-  __shared__ float base_s[kStage];
-  __shared__ float em_s[kStage][kTile];
-  __shared__ float en_s[kStage][kTile];
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+// the compile-time width a Q runs at: the w rows are padded to it with zeros,
+// and the q loop runs over all of it without a test
+__host__ __device__ constexpr int qmax_of(int q) {
+  return q <= 4 ? 4 : q <= 8 ? 8 : q <= 16 ? 16 : q <= 20 ? 20 : q <= 24 ? 24 : q <= 32 ? 32 : q <= 64 ? 64 : 128;
+}
+__host__ __device__ constexpr int tile_of(int q) { return q <= 32 ? 32 : 16; }
+__host__ __device__ constexpr int patch_m(int q) { return q <= 24 ? 2 : 1; }
+__host__ __device__ constexpr int patch_n(int q) { return q <= 32 ? 2 : 1; }
+__host__ __device__ constexpr int threads_of(int q) { return tile_of(q) * tile_of(q) / (patch_m(q) * patch_n(q)); }
+__host__ __device__ constexpr int blocks_per_sm(int q) { return q <= 24 ? 2 : 1; }
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
-  const int m0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  const int m = m0 + ty;
-  const int n = n0 + tx;
-  const bool live = (m < M) && (n < M);
-  const int qp = (Q + 3) / 4 * 4;  // padded w row stride in shared memory
-  const int t_begin = blockIdx.z * t_per_split;
-  const int t_end = min(T, t_begin + t_per_split);
+struct FwdArgs {
+  const float* base;
+  const float* E;
+  const float* D1;
+  const float* w;
+  const float* Z;
+  float* partial;     // (n_split, n_pairs, B, B)
+  float* out;         // (M, M)
+  unsigned* tickets;  // n_pairs counters; 0 between calls
+  int T, M, Q, n_tiles, n_pairs, n_split, t_per;
+};
 
-  float zz[kQP];
-#pragma unroll
-  for (int q = 0; q < kQP; ++q) {
-    zz[q] = (live && q < Q) ? Z[m * Q + q] * Z[n * Q + q] : 0.f;
-  }
-  const float d1 = live ? D1[m * M + n] : 0.f;
-
-  float acc = 0.f;
-  for (int t0 = t_begin; t0 < t_end; t0 += kStage) {
-    const int nt = min(kStage, t_end - t0);
-    __syncthreads();  // the previous stage is consumed
-    for (int i = tid; i < nt * qp; i += kTile * kTile) {
-      const int tt = i / qp;
-      const int q = i - tt * qp;
-      w_s[tt * qp + q] = (q < Q) ? w[(t0 + tt) * Q + q] : 0.f;
-    }
-    for (int i = tid; i < nt * kTile; i += kTile * kTile) {
-      const int tt = i / kTile;
-      const int j = i - tt * kTile;
-      const float* row = E + (size_t)(t0 + tt) * M;
-      em_s[tt][j] = (m0 + j < M) ? row[m0 + j] : 0.f;
-      en_s[tt][j] = (n0 + j < M) ? row[n0 + j] : 0.f;
-    }
-    if (tid < nt) base_s[tid] = base[t0 + tid];
-    __syncthreads();
-
-    if (live) {
-      for (int tt = 0; tt < nt; ++tt) {
-        const float4* wr = reinterpret_cast<const float4*>(w_s + tt * qp);
-        float c = 0.f;
-#pragma unroll
-        for (int q4 = 0; q4 < kQP / 4; ++q4) {
-          if (4 * q4 < Q) {
-            const float4 v = wr[q4];
-            c = fmaf(v.x, zz[4 * q4 + 0], c);
-            c = fmaf(v.y, zz[4 * q4 + 1], c);
-            c = fmaf(v.z, zz[4 * q4 + 2], c);
-            c = fmaf(v.w, zz[4 * q4 + 3], c);
-          }
-        }
-        const float logp = base_s[tt] - d1 + em_s[tt][ty] + en_s[tt][tx] - 0.5f * c;
-        acc += expf(logp);
-      }
-    }
-  }
-  if (live) partial[((size_t)blockIdx.z * M + m) * M + n] = acc;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// out[i] = sum_k partial[k, i], k in ascending order: a fixed order, so the
-// result does not change from run to run.
-__global__ void psi2_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int n_split, int mm) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mm) return;
-  float s = 0.f;
-  for (int k = 0; k < n_split; ++k) s += partial[(size_t)k * mm + i];
-  out[i] = s;
+template <int QMAX>
+__global__ void __launch_bounds__(threads_of(QMAX), blocks_per_sm(QMAX))
+psi2_fwd_kernel(const FwdArgs a) {
+  constexpr int PM = patch_m(QMAX), PN = patch_n(QMAX);  // the thread's patch
+  constexpr int B = tile_of(QMAX);
+  constexpr int TX = B / PN;  // threads along n
+  constexpr int NT = threads_of(QMAX);
+  constexpr int CH = 4 / (PM * PN);  // chains a element's q sum runs in
+  constexpr int EP = B * B / NT;  // tile elements a thread sums at the end
+  constexpr int kQP = round4(QMAX);
+  __shared__ __align__(16) float w_s[2][kStage * kQP];
+  __shared__ float b_s[2][kStage];
+  __shared__ float em_s[2][kStage * B];
+  __shared__ float en_s[2][kStage * B];
+  __shared__ int last;
+
+  const int Q = a.Q, M = a.M;
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  // this block's tile pair (ti <= tj), numbered row by row
+  int ti = 0, rem = blockIdx.x;
+  while (rem >= a.n_tiles - ti) {
+    rem -= a.n_tiles - ti;
+    ++ti;
+  }
+  const int tj = ti + rem;
+  const int m0 = ti * B, n0 = tj * B;
+  const int split = blockIdx.y;
+  const int t_begin = split * a.t_per;
+  const int t_end = min(a.T, t_begin + a.t_per);
+  const int mr = m0 + PM * ty;  // first row and column of the thread's patch
+  const int nr = n0 + PN * tx;
+  const bool any_live = mr < M && nr < M;
+
+  float zz[PM][PN][kQP], d1[PM][PN], acc[PM][PN];
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+#pragma unroll
+    for (int j = 0; j < PN; ++j) {
+      const bool live = mr + i < M && nr + j < M;
+#pragma unroll
+      for (int q = 0; q < kQP; ++q) {
+        zz[i][j][q] = (live && q < Q) ? a.Z[(mr + i) * Q + q] * a.Z[(nr + j) * Q + q] : 0.f;
+      }
+      d1[i][j] = live ? a.D1[(size_t)(mr + i) * M + nr + j] : 0.f;
+      acc[i][j] = 0.f;
+    }
+  }
+  // the w rows' pad columns are read (times zz = 0) and must not be NaN
+  for (int i = tid; i < 2 * kStage * (kQP - Q); i += NT) {
+    const int row = i / (kQP - Q);
+    w_s[row / kStage][(row % kStage) * kQP + Q + i - row * (kQP - Q)] = 0.f;
+  }
+
+  auto load = [&](int buf, int t0) {
+    const int nt = min(kStage, t_end - t0);
+    for (int i = tid; i < nt * Q; i += NT) {
+      const int tt = i / Q;
+      const int q = i - tt * Q;
+      cp_async4(&w_s[buf][tt * kQP + q], a.w + (size_t)(t0 + tt) * Q + q);
+    }
+    if (tid < nt) cp_async4(&b_s[buf][tid], a.base + t0 + tid);
+    for (int i = tid; i < nt * B; i += NT) {
+      const int tt = i / B;
+      const int j = i - tt * B;
+      const float* row = a.E + (size_t)(t0 + tt) * M;
+      if (m0 + j < M) {
+        cp_async4(&em_s[buf][i], row + m0 + j);
+      } else {
+        em_s[buf][i] = 0.f;
+      }
+      if (n0 + j < M) {
+        cp_async4(&en_s[buf][i], row + n0 + j);
+      } else {
+        en_s[buf][i] = 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+
+  load(0, t_begin);
+  for (int s = 0, t0 = t_begin; t0 < t_end; ++s, t0 += kStage) {
+    const int buf = s & 1;
+    const bool pending = t0 + kStage < t_end;
+    if (pending) {
+      load(buf ^ 1, t0 + kStage);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage's rows are in
+    const int nt = min(kStage, t_end - t0);
+    if (any_live) {
+      for (int tt = 0; tt < nt; ++tt) {
+        const float4* wr = reinterpret_cast<const float4*>(&w_s[buf][tt * kQP]);
+        float c[PM][PN][CH];
+#pragma unroll
+        for (int i = 0; i < PM; ++i) {
+#pragma unroll
+          for (int j = 0; j < PN; ++j) {
+#pragma unroll
+            for (int h = 0; h < CH; ++h) c[i][j][h] = 0.f;
+          }
+        }
+        // the whole padded row: w's pad columns and zz there are 0, and a Q
+        // test here would cost a branch per float4
+#pragma unroll
+        for (int q4 = 0; q4 < kQP / 4; ++q4) {
+          const float4 v = wr[q4];
+          const float vq[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int i = 0; i < PM; ++i) {
+#pragma unroll
+              for (int j = 0; j < PN; ++j) c[i][j][u % CH] = fmaf(vq[u], zz[i][j][4 * q4 + u], c[i][j][u % CH]);
+            }
+          }
+        }
+        const float bt = b_s[buf][tt];
+#pragma unroll
+        for (int i = 0; i < PM; ++i) {
+          const float at = bt + em_s[buf][tt * B + PM * ty + i];
+#pragma unroll
+          for (int j = 0; j < PN; ++j) {
+            float cs = c[i][j][0];
+#pragma unroll
+            for (int h = 1; h < CH; ++h) cs += c[i][j][h];
+            const float logp = fmaf(-0.5f, cs, (at + en_s[buf][tt * B + PN * tx + j]) - d1[i][j]);
+            acc[i][j] += expf(logp);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is free for the stage after next
+  }
+
+  float* part = a.partial + ((size_t)split * a.n_pairs + blockIdx.x) * B * B;
+#pragma unroll
+  for (int i = 0; i < PM; ++i) {
+#pragma unroll
+    for (int j = 0; j < PN; ++j) part[(PM * ty + i) * B + PN * tx + j] = acc[i][j];
+  }
+
+  // ticket: the last block of this tile pair sums the splits in ascending
+  // order, each thread EP elements at once so their loads are in flight together
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.tickets + blockIdx.x, 1u) == (unsigned)(a.n_split - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* p0 = a.partial + (size_t)blockIdx.x * B * B + tid;
+  const size_t stride = (size_t)a.n_pairs * B * B;
+  float v[EP];
+#pragma unroll
+  for (int e = 0; e < EP; ++e) v[e] = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < a.n_split; ++k) {
+    float x[EP];
+#pragma unroll
+    for (int e = 0; e < EP; ++e) x[e] = __ldcg(p0 + k * stride + e * NT);
+#pragma unroll
+    for (int e = 0; e < EP; ++e) v[e] += x[e];
+  }
+  const bool diag = ti == tj;
+#pragma unroll
+  for (int e = 0; e < EP; ++e) {
+    const int i = tid + e * NT;
+    const int m = m0 + i / B;
+    const int n = n0 + i % B;
+    if (m < M && n < M && (!diag || m <= n)) {
+      a.out[(size_t)m * M + n] = v[e];
+      a.out[(size_t)n * M + m] = v[e];
+    }
+  }
+  if (tid == 0) a.tickets[blockIdx.x] = 0u;
+}
+
+template <int QMAX>
+int launch(const FwdArgs& a, cudaStream_t s) {
+  psi2_fwd_kernel<QMAX><<<dim3(a.n_pairs, a.n_split), threads_of(QMAX), 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int rgp_psi2_fwd_max_q() { return kMaxQ; }
+// the output tile edge and the blocks per SM the launch bounds aim at, for Q
+extern "C" int rgp_psi2_fwd_tile(int Q) { return tile_of(Q); }
+extern "C" int rgp_psi2_fwd_blocks_per_sm(int Q) { return blocks_per_sm(Q); }
 
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = launched).
-// partial: (n_split, M, M) scratch; out: (M, M). All float32, row-major.
-extern "C" int rgp_psi2_fwd(const float* base, const float* E, const float* D1,
-                            const float* w, const float* Z, float* partial, float* out,
-                            int T, int M, int Q, int n_split, int t_per_split,
+// One launch on `stream`; returns cudaGetLastError() (0 = launched).
+// partial: (n_split, n_pairs, B, B) scratch with B = rgp_psi2_fwd_tile(Q) and
+// n_pairs = n(n+1)/2, n = ceil(M / B); tickets: n_tickets >= n_pairs unsigned
+// counters, all 0, left 0; out: (M, M). All float32, row-major.
+extern "C" int rgp_psi2_fwd(const float* base, const float* E, const float* D1, const float* w,
+                            const float* Z, float* partial, float* out, unsigned* tickets,
+                            int n_tickets, int T, int M, int Q, int n_split, int t_per_split,
                             void* stream) {
-  if (T < 1 || M < 1 || Q < 1 || Q > kMaxQ || n_split < 1 ||
-      (long long)n_split * t_per_split < T) {
+  if (T < 1 || M < 1 || Q < 1 || Q > kMaxQ || n_split < 1 || t_per_split < 1 ||
+      (long long)n_split * t_per_split < T || (long long)(n_split - 1) * t_per_split >= T) {
     return (int)cudaErrorInvalidValue;
   }
+  const int B = tile_of(Q);
+  const int n_tiles = (M + B - 1) / B;
+  const int n_pairs = n_tiles * (n_tiles + 1) / 2;
+  if (n_tickets < n_pairs) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{base, E, D1, w, Z, partial, out, tickets, T, M, Q, n_tiles, n_pairs, n_split, t_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (M + kTile - 1) / kTile;
-  const dim3 block(kTile, kTile);
-  const dim3 grid(tiles, tiles, n_split);
-  if (Q <= 8) {
-    psi2_partial_kernel<8><<<grid, block, 0, s>>>(base, E, D1, w, Z, partial, T, M, Q, t_per_split);
-  } else if (Q <= 32) {
-    psi2_partial_kernel<32><<<grid, block, 0, s>>>(base, E, D1, w, Z, partial, T, M, Q, t_per_split);
-  } else {
-    psi2_partial_kernel<kMaxQ><<<grid, block, 0, s>>>(base, E, D1, w, Z, partial, T, M, Q, t_per_split);
+  switch (qmax_of(Q)) {
+    case 4: return launch<4>(a, s);
+    case 8: return launch<8>(a, s);
+    case 16: return launch<16>(a, s);
+    case 20: return launch<20>(a, s);
+    case 24: return launch<24>(a, s);
+    case 32: return launch<32>(a, s);
+    case 64: return launch<64>(a, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int mm = M * M;
-  psi2_reduce_kernel<<<(mm + 255) / 256, 256, 0, s>>>(partial, out, n_split, mm);
-  return (int)cudaGetLastError();
+  return launch<kMaxQ>(a, s);
 }

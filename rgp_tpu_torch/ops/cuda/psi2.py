@@ -5,17 +5,19 @@
     C[t,m,n] = sum_q w[t,q] z[m,q] z[n,q]
 
 with (base, E, D1, w) from :func:`rbf_psi2_precompute`. K1 computes ``out``
-(``rgp_tpu_torch/csrc/psi2_fwd.cu``); K2 computes its VJP with respect to
-(base, E, w) and the C term's direct dZ from the symmetrized cotangent
-(``rgp_tpu_torch/csrc/psi2_bwd.cu``). Each source's header note says what
-bounds it and how it is laid out. Both are compiled with ``nvcc`` for
+(``rgp_tpu_torch/csrc/psi2_fwd.cu``) from the tile pairs of its upper
+triangle; K2 computes its VJP with respect to (base, E, D1, w) and the C
+term's direct dZ from the cotangent as autograd hands it in
+(``rgp_tpu_torch/csrc/psi2_bwd.cu``). Each is one launch a call, and sums its
+T ranges in a fixed order inside that launch. Each source's header note says
+what bounds it and how it is laid out. Both are compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/`` of the checkout at first use and bound with
 ``ctypes``.
 
 :func:`psi2_time_sum` and :func:`psi2_time_sum_bwd` are the wrappers: on a
 CUDA tensor they launch the kernel or raise; on a CPU tensor they run
 :func:`psi2_time_sum_plain` / :func:`psi2_time_sum_bwd_plain`, the same
-split-plus-ordered-reduce arithmetic in plain PyTorch. :class:`RBFPsi2Sum`
+partition and ordered reduce in plain PyTorch. :class:`RBFPsi2Sum`
 joins them into a ``torch.autograd.Function``; :func:`rbf_psi2_sum` runs the
 precompute in torch (autograd chains through it) and the Function in float32.
 """
@@ -23,6 +25,7 @@ precompute in torch (autograd chains through it) and the Function in float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,6 +47,8 @@ __all__ = [
     "psi2_time_sum_bwd_plain",
     "t_split",
     "bwd_split",
+    "fwd_tile",
+    "bwd_plan",
     "build",
     "launches",
     "bwd_launches",
@@ -53,39 +58,62 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = {"psi2_fwd": CSRC / "psi2_fwd.cu", "psi2_bwd": CSRC / "psi2_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 MAX_Q = 128  # kMaxQ in both sources
-_TILE = 16  # kTile in psi2_fwd.cu
+_SMS = 132  # SMs of an H100 SXM: the partitions are planned for it on every device
+_FWD_MIN_T = 8  # timesteps a K1 block takes at least
 _BWD_TILE_M = 32  # kBM in psi2_bwd.cu: m rows per block
 _BWD_STAGE_T = 8  # kWarps in psi2_bwd.cu: timesteps a block takes at a time
-# enough blocks for ~4 per SM of an H100 (132 SMs); more splits only add
-# partial traffic and reduce work
-_TARGET_BLOCKS = 4 * 132
-_MIN_T_PER_SPLIT = 8
+_BWD_BLOCKS_PER_SM = 2  # __launch_bounds__ of psi2_bwd.cu for Q <= 32
+_MAX_WAVES = 4  # more splits only add partial traffic and reduce work
 
 launches = 0  # times the wrapper launched K1
 bwd_launches = 0  # times the wrapper launched K2
 _libs = {}
+_tickets = {}  # (device, stream) -> the kernels' ticket counters, 0 between launches
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def t_split(T: int, M: int):
+def fwd_tile(Q: int) -> int:
+    """K1's output tile edge (``tile_of`` in psi2_fwd.cu): 32 up to Q = 32,
+    where each thread owns a 2 x 2 (Q <= 24) or 1 x 2 patch, and 16 above,
+    one element a thread."""
+    return 32 if Q <= 32 else 16
+
+
+def _fwd_blocks_per_sm(Q: int) -> int:
+    return 2 if Q <= 24 else 1  # blocks_per_sm in psi2_fwd.cu
+
+
+@functools.lru_cache(maxsize=256)
+def _split(T: int, tiles: int, step: int, min_t: int, slots: int):
+    """(n_split, t_per): T cut into ranges of t_per timesteps (a multiple of
+    ``step``, at least ``min_t``) so that ``tiles * n_split`` blocks fill whole
+    waves of ``slots`` resident blocks as nearly as possible, in at most
+    ``_MAX_WAVES`` waves; among equals, the fewest ranges."""
+    best = None
+    for n in range(1, max(1, min(_cdiv(T, min_t), _cdiv(_MAX_WAVES * slots, tiles))) + 1):
+        t_per = _cdiv(_cdiv(T, n), step) * step
+        blocks = tiles * _cdiv(T, t_per)
+        fill = blocks / (_cdiv(blocks, slots) * slots)
+        if best is None or fill > best[0]:
+            best = (fill, _cdiv(T, t_per), t_per)
+    return best[1], best[2]
+
+
+def t_split(T: int, M: int, Q: int):
     """(n_split, t_per_split): how K1 cuts the T axis across blocks. Shared by
     the kernel and the plain version so both sum in the same order."""
-    tiles = _cdiv(M, _TILE) ** 2
-    n_split = max(1, min(_cdiv(T, _MIN_T_PER_SPLIT), _cdiv(_TARGET_BLOCKS, tiles)))
-    t_per = _cdiv(T, n_split)
-    return _cdiv(T, t_per), t_per
+    n = _cdiv(M, fwd_tile(Q))
+    return _split(T, n * (n + 1) // 2, 1, _FWD_MIN_T, _SMS * _fwd_blocks_per_sm(Q))
 
 
 def bwd_split(T: int, M: int):
     """(n_split, t_per_split) for K2: blocks are (m tile, T range), and a T
     range is a whole number of the kernel's 8-timestep stages."""
-    m_tiles = _cdiv(M, _BWD_TILE_M)
-    n_split = max(1, min(_cdiv(T, _BWD_STAGE_T), _cdiv(_TARGET_BLOCKS, m_tiles)))
-    t_per = _cdiv(_cdiv(T, n_split), _BWD_STAGE_T) * _BWD_STAGE_T
-    return _cdiv(T, t_per), t_per
+    slots = _SMS * _BWD_BLOCKS_PER_SM
+    return _split(T, _cdiv(M, _BWD_TILE_M), _BWD_STAGE_T, _BWD_STAGE_T, slots)
 
 
 def rbf_psi2_precompute(p, Z, mu, s):
@@ -114,17 +142,21 @@ def _probabilities(base, E, D1, w, Z):
     return torch.exp(base[:, None, None] - D1[None] + E[:, :, None] + E[:, None, :] - 0.5 * C)
 
 
+def _upper(out):
+    """out's upper triangle mirrored into the lower one: K1 computes the
+    elements with m <= n and writes each to both places."""
+    return torch.triu(out) + torch.triu(out, 1).T
+
+
 def psi2_time_sum_plain(base, E, D1, w, Z):
     """Plain PyTorch version of K1: per-split partial sums over the same T
-    ranges, then summed in ascending split order. Any dtype."""
-    T = w.shape[0]
-    n_split, t_per = t_split(T, Z.shape[0])
-    out = None
-    for k in range(n_split):
-        sl = slice(k * t_per, min(T, (k + 1) * t_per))
-        part = _probabilities(base[sl], E[sl], D1, w[sl], Z).sum(0)
-        out = part if out is None else out + part
-    return out
+    ranges, summed in ascending split order, then the upper triangle
+    mirrored, as the kernel's symmetric tile plan writes it. Any dtype."""
+    T, Q = w.shape
+    n_split, t_per = t_split(T, Z.shape[0], Q)
+    parts = [_probabilities(base[sl], E[sl], D1, w[sl], Z).sum(0)
+             for sl in (slice(k * t_per, min(T, (k + 1) * t_per)) for k in range(n_split))]
+    return _upper(_ordered_sum(parts))
 
 
 def _ordered_sum(parts):
@@ -135,14 +167,18 @@ def _ordered_sum(parts):
     return out
 
 
-def psi2_time_sum_bwd_plain(base, E, D1, w, Z, Gs):
-    """Plain PyTorch version of K2 -> (dbase (T,), dE (T,M), dw (T,Q), dzC
-    (M,Q)). The same partials as the kernel: dbase and dw per 32-row m tile,
-    dzC per T range of :func:`bwd_split`, each summed in ascending order. Any
-    dtype."""
+def psi2_time_sum_bwd_plain(base, E, D1, w, Z, g, out):
+    """Plain PyTorch version of K2 -> (dbase (T,), dE (T,M), dD1 (M,M), dw
+    (T,Q), dzC (M,Q)) for the cotangent ``g`` of ``out = psi2_time_sum(...)``,
+    with Gs = g + g^T formed as the kernel forms it; dD1 is the VJP of a
+    forward that reads D1's upper triangle only. The same partials as the
+    kernel: dbase and dw per 32-row m tile, dzC per T range of
+    :func:`bwd_split`, each summed in ascending order. Any dtype and any
+    strides of ``g``."""
     T, Q = w.shape
     M = Z.shape[0]
     n_split, t_per = bwd_split(T, M)
+    Gs = g + g.T
     tiles = [slice(j, min(M, j + _BWD_TILE_M)) for j in range(0, M, _BWD_TILE_M)]
     dbase, dE, dw, dzc_parts = [], [], [], []
     for k in range(n_split):
@@ -154,7 +190,10 @@ def psi2_time_sum_bwd_plain(base, E, D1, w, Z, Gs):
         dbase.append(_ordered_sum([0.5 * de[:, ms].sum(1) for ms in tiles]))
         dw.append(_ordered_sum([-0.25 * torch.einsum("mq,tmq->tq", Z[ms], S[:, ms]) for ms in tiles]))
         dzc_parts.append(-0.5 * torch.einsum("tq,tmq->mq", w[sl], S))
-    return torch.cat(dbase), torch.cat(dE), torch.cat(dw), _ordered_sum(dzc_parts)
+    # K1 reads D1 only where m <= n (it mirrors its upper triangle)
+    upper = torch.triu(torch.ones_like(out)) - 0.5 * torch.eye(M, dtype=out.dtype, device=out.device)
+    dD1 = -(out * Gs) * upper
+    return torch.cat(dbase), torch.cat(dE), dD1, torch.cat(dw), _ordered_sum(dzc_parts)
 
 
 def build():
@@ -195,14 +234,21 @@ def build():
 def _load(name):
     if name not in _libs:
         lib = ctypes.CDLL(str(build()[name]))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "psi2_fwd":
-            lib.rgp_psi2_fwd.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+            lib.rgp_psi2_fwd.argtypes = [vp] * 8 + [ci] * 6 + [vp]
             lib.rgp_psi2_fwd.restype = ci
             consts = {"rgp_psi2_fwd_max_q": MAX_Q}
+            for fn, want in (("rgp_psi2_fwd_tile", fwd_tile), ("rgp_psi2_fwd_blocks_per_sm", _fwd_blocks_per_sm)):
+                getattr(lib, fn).argtypes = [ci]
+                getattr(lib, fn).restype = ci
+                if any(getattr(lib, fn)(q) != want(q) for q in range(1, MAX_Q + 1)):
+                    raise RuntimeError(f"psi2_fwd.cu and ops/cuda/psi2.py disagree on {fn}")
         else:
-            lib.rgp_psi2_bwd.argtypes = [vp] * 13 + [ci] * 5 + [vp]
+            lib.rgp_psi2_bwd.argtypes = [vp] * 6 + [cl] * 2 + [vp] * 10 + [ci] * 6 + [vp]
             lib.rgp_psi2_bwd.restype = ci
+            lib.rgp_psi2_bwd_plan.argtypes = [ci, ci, vp]
+            lib.rgp_psi2_bwd_plan.restype = ci
             consts = {"rgp_psi2_bwd_max_q": MAX_Q, "rgp_psi2_bwd_tile_m": _BWD_TILE_M}
         for fn, want in consts.items():
             getattr(lib, fn).argtypes = []
@@ -213,23 +259,47 @@ def _load(name):
     return _libs[name]
 
 
-def _check(base, E, D1, w, Z, Gs=None):
+def bwd_plan(M: int, Q: int):
+    """K2's shared-memory plan on the current CUDA device: ``{"resident":
+    whether the block's Z, D1 and Gs columns are staged once, "n_cols": the
+    columns staged at a time, "ring": stage buffers, "smem_bytes": dynamic
+    shared memory a block}``."""
+    out = (ctypes.c_int * 3)()
+    err = _load("psi2_bwd").rgp_psi2_bwd_plan(M, Q, out)
+    if err != 0:
+        raise RuntimeError(f"psi2_bwd plan failed with CUDA error {err}")
+    return {"resident": out[0] >= M, "n_cols": out[0], "ring": out[1], "smem_bytes": out[2]}
+
+
+def _tickets_for(device, n):
+    """The ticket counters for kernels on ``device``'s current stream: zero
+    once when made, and each launch leaves them zero."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def _check(base, E, D1, w, Z, g=None, out=None):
     T, Q = w.shape
     M = Z.shape[0]
     want = {"base": (T,), "E": (T, M), "D1": (M, M), "w": (T, Q), "Z": (M, Q)}
-    args = [base, E, D1, w, Z]
-    if Gs is not None:
-        want["Gs"] = (M, M)
-        args.append(Gs)
+    args = {"base": base, "E": E, "D1": D1, "w": w, "Z": Z}
+    if g is not None:
+        want["g"] = want["out"] = (M, M)
+        args["g"], args["out"] = g, out
     dev = base.device
-    for name, x in zip(want, args):
+    for name, x in args.items():
         if x.device != dev:
             raise ValueError(f"psi2 kernel: {name} is on {x.device}, base on {dev}")
         if x.dtype != torch.float32:
             raise TypeError(f"psi2 kernel: the CUDA kernels take float32, {name} is {x.dtype}")
         if tuple(x.shape) != want[name]:
             raise ValueError(f"psi2 kernel: {name} has shape {tuple(x.shape)}, want {want[name]}")
-        if not x.is_contiguous():
+        # g is read through its strides; every other input densely
+        if name != "g" and not x.is_contiguous():
             raise ValueError(f"psi2 kernel: {name} is not contiguous")
     if T < 1 or M < 1 or not 1 <= Q <= MAX_Q:
         raise ValueError(f"psi2 kernel: need T, M >= 1 and 1 <= Q <= {MAX_Q}; got T={T} M={M} Q={Q}")
@@ -241,10 +311,11 @@ def _cuda_device(fn, base):
 
 
 def psi2_time_sum(base, E, D1, w, Z):
-    """sum_t Psi2_t from the precomputed decomposition -> (M, M).
+    """sum_t Psi2_t from the precomputed decomposition -> (M, M), exactly
+    symmetric.
 
-    CUDA tensors: launch K1 (float32 only) or raise. CPU tensors: the plain
-    version."""
+    CUDA tensors: launch K1 (float32 only, one launch) or raise. CPU tensors:
+    the plain version."""
     global launches
     if base.device.type == "cpu":
         return psi2_time_sum_plain(base, E, D1, w, Z)
@@ -252,15 +323,18 @@ def psi2_time_sum(base, E, D1, w, Z):
     _check(base, E, D1, w, Z)
     T, Q = w.shape
     M = Z.shape[0]
-    n_split, t_per = t_split(T, M)
+    n_split, t_per = t_split(T, M, Q)
+    B = fwd_tile(Q)
+    n_pairs = _cdiv(M, B) * (_cdiv(M, B) + 1) // 2
     lib = _load("psi2_fwd")
     with torch.cuda.device(base.device):
-        partial = torch.empty((n_split, M, M), dtype=torch.float32, device=base.device)
+        partial = torch.empty((n_split, n_pairs, B, B), dtype=torch.float32, device=base.device)
         out = torch.empty((M, M), dtype=torch.float32, device=base.device)
+        tickets = _tickets_for(base.device, n_pairs)
         err = lib.rgp_psi2_fwd(
             base.data_ptr(), E.data_ptr(), D1.data_ptr(), w.data_ptr(), Z.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), T, M, Q, n_split, t_per,
-            torch.cuda.current_stream(base.device).cuda_stream,
+            partial.data_ptr(), out.data_ptr(), tickets.data_ptr(), tickets.numel(), T, M, Q,
+            n_split, t_per, torch.cuda.current_stream(base.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"psi2_fwd kernel launch failed with CUDA error {err}")
@@ -268,19 +342,19 @@ def psi2_time_sum(base, E, D1, w, Z):
     return out
 
 
-def psi2_time_sum_bwd(base, E, D1, w, Z, Gs):
-    """K2: the VJP of :func:`psi2_time_sum` with respect to (base, E, w) and
-    the C term's direct dZ, for the symmetrized cotangent ``Gs = G + G^T``
-    -> (dbase (T,), dE (T,M), dw (T,Q), dzC (M,Q)). (dD1 is ``-out * G`` and
-    needs no kernel.)
+def psi2_time_sum_bwd(base, E, D1, w, Z, g, out):
+    """K2: the VJP of ``out = psi2_time_sum(base, E, D1, w, Z)`` for its
+    cotangent ``g`` -> (dbase (T,), dE (T,M), dD1 (M,M), dw (T,Q), dzC
+    (M,Q)), dzC being the C term's direct dZ. ``g`` may have any strides
+    (dense, transposed, expanded); the kernel forms ``g + g^T`` itself.
 
-    CUDA tensors: launch K2 (float32 only) or raise. CPU tensors: the plain
-    version."""
+    CUDA tensors: launch K2 (float32 only, one launch) or raise. CPU
+    tensors: the plain version."""
     global bwd_launches
     if base.device.type == "cpu":
-        return psi2_time_sum_bwd_plain(base, E, D1, w, Z, Gs)
+        return psi2_time_sum_bwd_plain(base, E, D1, w, Z, g, out)
     _cuda_device("psi2_time_sum_bwd", base)
-    _check(base, E, D1, w, Z, Gs)
+    _check(base, E, D1, w, Z, g, out)
     T, Q = w.shape
     M = Z.shape[0]
     n_split, t_per = bwd_split(T, M)
@@ -290,23 +364,26 @@ def psi2_time_sum_bwd(base, E, D1, w, Z, Gs):
         def empty(*shape):
             return torch.empty(shape, dtype=torch.float32, device=base.device)
 
-        dbase, dE, dw, dzc = empty(T), empty(T, M), empty(T, Q), empty(M, Q)
+        dbase, dE, dD1, dw, dzc = empty(T), empty(T, M), empty(M, M), empty(T, Q), empty(M, Q)
         part_dbase, part_dw, part_dzc = empty(m_tiles, T), empty(m_tiles, T, Q), empty(n_split, M, Q)
+        tickets = _tickets_for(base.device, n_split + m_tiles)
         err = lib.rgp_psi2_bwd(
-            base.data_ptr(), E.data_ptr(), D1.data_ptr(), w.data_ptr(), Z.data_ptr(), Gs.data_ptr(),
-            dbase.data_ptr(), dE.data_ptr(), dw.data_ptr(), dzc.data_ptr(),
-            part_dbase.data_ptr(), part_dw.data_ptr(), part_dzc.data_ptr(),
-            T, M, Q, n_split, t_per, torch.cuda.current_stream(base.device).cuda_stream,
+            base.data_ptr(), E.data_ptr(), D1.data_ptr(), w.data_ptr(), Z.data_ptr(),
+            g.data_ptr(), g.stride(0), g.stride(1), out.data_ptr(),
+            dbase.data_ptr(), dE.data_ptr(), dD1.data_ptr(), dw.data_ptr(), dzc.data_ptr(),
+            part_dbase.data_ptr(), part_dw.data_ptr(), part_dzc.data_ptr(), tickets.data_ptr(),
+            tickets.numel(), T, M, Q, n_split, t_per, torch.cuda.current_stream(base.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"psi2_bwd kernel launch failed with CUDA error {err}")
     bwd_launches += 1
-    return dbase, dE, dw, dzc
+    return dbase, dE, dD1, dw, dzc
 
 
 class RBFPsi2Sum(torch.autograd.Function):
-    """``psi2_time_sum(base, E, D1, w, Z)`` with K2 as its backward (the
-    counterpart of the JAX package's ``custom_vjp`` ``rbf_psi2_sum_pallas``).
+    """``psi2_time_sum(base, E, D1, w, Z)`` with K2 as its whole backward (the
+    counterpart of the JAX package's ``custom_vjp`` ``rbf_psi2_sum_pallas``):
+    one launch gives every input's gradient, whatever the cotangent's strides.
 
     The inputs are treated as independent: ``Z`` here is only the C term's
     factor, and autograd chains (base, E, D1, w) back through
@@ -322,10 +399,7 @@ class RBFPsi2Sum(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         base, E, D1, w, Z, out = ctx.saved_tensors
-        # a fresh dense tensor: autograd may hand in an expanded or strided g
-        Gs = (g + g.T).to(base.dtype).contiguous()
-        dbase, dE, dw, dzc = psi2_time_sum_bwd(base, E, D1, w, Z, Gs)
-        return dbase, dE, -(out * g), dw, dzc
+        return psi2_time_sum_bwd(base, E, D1, w, Z, g, out)
 
 
 def rbf_psi2_sum(p, Z, mu, s):

@@ -7,9 +7,12 @@ tests/test_pallas.py); in float64 the T-split reduce changes only the
 summation order (rtol 1e-10); psi01 / psi2_per_t are the same closed forms
 (rtol 1e-12). K2's plain version and the autograd Function's gradients: the
 Pallas backward tests' 3e-4 in float32 (tests/test_pallas.py), 1e-9 in
-float64, where only the summation order differs. The CUDA kernels themselves
-are held against the plain versions on the card by the tests marked ``cuda``
-and by chip_smoke.py.
+float64, where only the summation order differs. The plain versions follow
+the kernels' plans: K1's output is its mirrored upper triangle (exactly
+symmetric), K2 takes the cotangent with any strides and gives the same bits
+as for its dense copy. The CUDA kernels themselves are held against the
+plain versions on the card by the tests marked ``cuda`` (one device launch a
+call, bit-identical reruns) and by chip_smoke.py.
 """
 
 import jax
@@ -56,9 +59,25 @@ def test_plain_k1_f64_matches_psi_statistics(rng, T, M, Q):
     ref = np.asarray(_jax_psi_statistics(JRBF(input_dim=Q), jp, jnp.asarray(Z), jnp.asarray(mu),
                                         jnp.asarray(s), block=None).psi2)
     pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
-    assert psi2.t_split(T, M)[0] > 1  # the T-split reduce is exercised
+    assert psi2.t_split(T, M, Q)[0] > 1  # the T-split reduce is exercised
     ours = psi2.psi2_time_sum_plain(*pre, torch.tensor(Z)).numpy()
     np.testing.assert_allclose(ours, ref, rtol=1e-10)
+
+
+@pytest.mark.parametrize("T,M,Q", [(40, 37, 3), (33, 50, 40)])
+def test_plain_k1_symmetric_plan_matches_pallas_interpret(rng, T, M, Q):
+    """A ragged M cuts the last diagonal tile (32-wide tiles at Q <= 32,
+    16-wide above): the output is exactly symmetric and matches the Pallas
+    kernel."""
+    assert M % psi2.fwd_tile(Q) != 0
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q, log_ls_shift=0.5)
+    pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
+    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z))]
+    ours = psi2.psi2_time_sum(*args32)
+    assert torch.equal(ours, ours.T)
+    ref = np.asarray(_psi2_pallas_raw(*[jnp.asarray(x.numpy()) for x in args32],
+                                      bt=8, bm=64, interpret=True))
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=2e-4, atol=2e-5)
 
 
 @pytest.mark.parametrize("block", [None, 16])
@@ -114,13 +133,36 @@ def test_plain_k2_matches_pallas_interpret(rng):
     mu, s, Z, _, tp = _inputs(rng, T, M, Q)
     pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
     G = rng.standard_normal((M, M))
-    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z), torch.tensor(G + G.T))]
+    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z), torch.tensor(G))]
+    out = psi2.psi2_time_sum(*args32[:5])
     assert psi2.bwd_split(T, M)[0] > 1  # the ordered reduce over T ranges is exercised
-    ours = psi2.psi2_time_sum_bwd(*args32)  # CPU tensors -> the plain version
-    ref = _psi2_bwd_raw(*[jnp.asarray(x.numpy()) for x in args32], bt=8, bm=64, interpret=True)
-    for a, b in zip(ours, ref):
+    dbase, dE, dD1, dw, dzc = psi2.psi2_time_sum_bwd(*args32, out)  # CPU tensors -> the plain version
+    # the Pallas kernel takes the symmetrized cotangent; the port forms it
+    ref = _psi2_bwd_raw(*[jnp.asarray(x.numpy()) for x in args32[:5]], jnp.asarray((G + G.T).astype(np.float32)),
+                        bt=8, bm=64, interpret=True)
+    for a, b in zip((dbase, dE, dw, dzc), ref):
         assert a.dtype == torch.float32
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-4, atol=3e-4)
+    # K1 reads D1's upper triangle only: dD1 is -out * Gs there, -out * g on the diagonal
+    G32 = G.astype(np.float32)
+    want = np.triu(-(out.numpy() * (G32 + G32.T)), 1) + np.diag(-(np.diag(out.numpy()) * np.diag(G32)))
+    np.testing.assert_array_equal(dD1.numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["transposed", "expanded"])
+def test_plain_k2_reads_a_strided_cotangent(rng, layout):
+    """A transposed or an expanded cotangent gives the same gradients as its
+    dense copy, bit for bit."""
+    T, M, Q = 30, 37, 3
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
+    args = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z))]
+    out = psi2.psi2_time_sum(*args)
+    G = torch.tensor(rng.standard_normal((M, M)), dtype=torch.float32)
+    g = G.T if layout == "transposed" else G[:1, :1].expand(M, M)
+    assert not g.is_contiguous()
+    for a, b in zip(psi2.psi2_time_sum_bwd(*args, g, out), psi2.psi2_time_sum_bwd(*args, g.contiguous(), out)):
+        assert torch.equal(a, b)
 
 
 def _jax_psi2_grads(jp, Z, mu, s, G):
@@ -141,7 +183,7 @@ def test_psi2_function_grads_match_jax(rng, dtype):
     T, M, Q = 70, 37, 4
     mu, s, Z, jp, tp = _inputs(rng, T, M, Q, log_ls_shift=0.4)
     G = rng.standard_normal((M, M))
-    assert psi2.t_split(T, M)[0] > 1 and psi2.bwd_split(T, M)[0] > 1
+    assert psi2.t_split(T, M, Q)[0] > 1 and psi2.bwd_split(T, M)[0] > 1
     ref = _jax_psi2_grads(jp, Z, mu, s, jnp.asarray(G))
     leaves = {k: v.to(dtype).requires_grad_() for k, v in tp.items()}
     Zt, mut, st = (torch.tensor(x, dtype=dtype, requires_grad=True) for x in (Z, mu, s))
@@ -189,17 +231,25 @@ def test_bwd_split_covers_t_in_whole_stages(T, M):
 
 @pytest.mark.parametrize("T,M", [(1, 1), (7, 100), (512, 100), (513, 16), (2048, 256), (100000, 3)])
 def test_t_split_covers_t_exactly(T, M):
-    n_split, t_per = psi2.t_split(T, M)
-    assert n_split >= 1 and t_per >= 1
-    assert (n_split - 1) * t_per < T <= n_split * t_per
+    for Q in (1, 20, 24, 32, 64, 128):  # the tile edge, so the block count, depends on Q
+        n_split, t_per = psi2.t_split(T, M, Q)
+        assert n_split >= 1 and t_per >= 1
+        assert (n_split - 1) * t_per < T <= n_split * t_per
+        n = -(-M // psi2.fwd_tile(Q))
+        assert n * (n + 1) // 2 * n_split <= max(n * (n + 1) // 2, 4 * 132 * 2)  # at most 4 waves
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "q", "gs_shape", "gs_contiguous"])
+# "gs_shape": the cotangent's shape (K2 now takes g and forms Gs itself; a
+# non-contiguous g is read through its strides, so it is no longer refused)
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "q", "gs_shape", "g_dtype", "out_shape",
+                                 "out_contiguous"])
 def test_kernel_argument_checks(rng, bad):
     T, M, Q = 9, 5, 3
     args = [torch.zeros(T), torch.zeros(T, M), torch.zeros(M, M), torch.zeros(T, Q), torch.zeros(M, Q)]
-    Gs = torch.zeros(M, M)
-    psi2._check(*args, Gs)
+    g, out = torch.zeros(M, M), torch.zeros(M, M)
+    psi2._check(*args, g, out)
+    psi2._check(*args, g.T, out)  # g is read through its strides
+    psi2._check(*args, torch.zeros(1, 1).expand(M, M), out)
     if bad == "dtype":
         args[0] = args[0].double()
     elif bad == "shape":
@@ -209,11 +259,28 @@ def test_kernel_argument_checks(rng, bad):
     elif bad == "q":
         args[3], args[4] = torch.zeros(T, psi2.MAX_Q + 1), torch.zeros(M, psi2.MAX_Q + 1)
     elif bad == "gs_shape":
-        Gs = torch.zeros(M, M + 1)
+        g = torch.zeros(M, M + 1)
+    elif bad == "g_dtype":
+        g = g.double()
+    elif bad == "out_shape":
+        out = torch.zeros(M + 1, M)
     else:
-        Gs = torch.zeros(M, 2 * M)[:, ::2]
+        out = torch.zeros(M, 2 * M)[:, ::2]
     with pytest.raises((TypeError, ValueError)):
-        psi2._check(*args, Gs)
+        psi2._check(*args, g, out)
+
+
+def _device_launches(fn):
+    """Device kernels, copies and fills torch.profiler records in one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    return result, sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False))
 
 
 @pytest.mark.cuda
@@ -226,32 +293,37 @@ def test_k1_kernel_matches_plain_on_card(rng):
     pre = psi2.rbf_psi2_precompute({k: v.to(dev) for k, v in tp.items()}, torch.tensor(Z, device=dev),
                                    torch.tensor(mu, device=dev), torch.tensor(s, device=dev))
     args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z, device=dev))]
+    psi2.psi2_time_sum(*args32)  # build, load and make the ticket counters outside the count
     n0 = psi2.launches
-    k = psi2.psi2_time_sum(*args32)
-    torch.cuda.synchronize()
-    assert psi2.launches == n0 + 1
+    k, n_device = _device_launches(lambda: psi2.psi2_time_sum(*args32))
+    assert psi2.launches == n0 + 1 and n_device == 1
+    assert torch.equal(k, psi2.psi2_time_sum(*args32)) and torch.equal(k, k.T)
     ref = psi2.psi2_time_sum_plain(*[x.double() for x in args32])
     np.testing.assert_allclose(k.cpu().numpy(), ref.cpu().numpy(), rtol=2e-4,
                                atol=2e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.cuda
-def test_k2_kernel_matches_plain_on_card(rng):
+@pytest.mark.parametrize("T,M,Q", [(65, 130, 5), (24, 1200, 20)])
+def test_k2_kernel_matches_plain_on_card(rng, T, M, Q):
+    """K2 against its plain version, at a shape whose columns are resident in
+    shared memory and one it streams; a transposed cotangent."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    T, M, Q = 65, 130, 5
     mu, s, Z, _, tp = _inputs(rng, T, M, Q)
     dev = torch.device("cuda")
     pre = psi2.rbf_psi2_precompute({k: v.to(dev) for k, v in tp.items()}, torch.tensor(Z, device=dev),
                                    torch.tensor(mu, device=dev), torch.tensor(s, device=dev))
-    G = rng.standard_normal((M, M))
-    args32 = [x.to(torch.float32).contiguous()
-              for x in (*pre, torch.tensor(Z, device=dev), torch.tensor(G + G.T, device=dev))]
+    G = torch.tensor(rng.standard_normal((M, M)), dtype=torch.float32, device=dev)
+    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z, device=dev))]
+    out = psi2.psi2_time_sum(*args32)
+    psi2.psi2_time_sum_bwd(*args32, G.T, out)
     n0 = psi2.bwd_launches
-    k = psi2.psi2_time_sum_bwd(*args32)
-    torch.cuda.synchronize()
-    assert psi2.bwd_launches == n0 + 1
-    ref = psi2.psi2_time_sum_bwd_plain(*[x.double() for x in args32])
+    k, n_device = _device_launches(lambda: psi2.psi2_time_sum_bwd(*args32, G.T, out))
+    assert psi2.bwd_launches == n0 + 1 and n_device == 1
+    for a, b in zip(k, psi2.psi2_time_sum_bwd(*args32, G.T, out)):
+        assert torch.equal(a, b)
+    ref = psi2.psi2_time_sum_bwd_plain(*[x.double() for x in args32], G.T.double(), out.double())
     for a, b in zip(k, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=3e-4,
                                    atol=3e-5 * float(b.abs().max()))
