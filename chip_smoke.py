@@ -55,9 +55,6 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-
-``python3 chip_smoke.py --kernels-only`` runs phases 1-3 alone and prints
-their rows, for comparing the kernels of two checkouts in one call.
 """
 
 from __future__ import annotations
@@ -101,23 +98,6 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def time_cuda_ms(fn, n=30, warm=3):
-    """Median wall time of ``fn`` on the card by CUDA events, after warm-up."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def time_host_ms(fn, n):
     """Median host time of ``fn`` ending in a synchronize."""
     times = []
@@ -127,46 +107,6 @@ def time_host_ms(fn, n):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def _device_ops(fn, calls):
-    """(device us, device ops, {name: count}) that torch.profiler records over
-    ``calls`` back-to-back calls of ``fn``: CUDA kernels, copies and fills."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, ops, names = 0.0, 0, {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            us += e.self_device_time_total
-            ops += e.count
-            names[e.key] = e.count
-    return us, ops, names
-
-
-def device_per_call(fn, n=20, trials=5):
-    """(device ms per call, device launches per call, {device op name: count})
-    of ``fn``, after a warm-up call. Seen on the card: CUPTI now and then
-    drops records, up to half of a 20-call window, or a whole window. So the
-    launches per call are the most that ``trials`` profiles of one call each
-    record, and the device time per call is the mean duration of the ops
-    recorded over ``n`` back-to-back calls times the launches per call (with
-    no record dropped, the sum over the n calls divided by n). Host time
-    between the calls is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = max(_device_ops(fn, 1)[1] for _ in range(trials))
-    for attempt in range(3):
-        us, ops, names = _device_ops(fn, n)
-        if ops > 0 and per_call > 0:
-            if ops != per_call * n:
-                print(f"device_per_call: the profiler kept {ops} of {per_call * n} device records")
-            return us / ops * per_call / 1e3, per_call, names
-        print(f"device_per_call: torch.profiler returned no device records (attempt {attempt + 1})")
-    fail("torch.profiler recorded no device operation in 3 attempts: no device time")
 
 
 def check_one_launch(per_call, names, kernel, shape):
@@ -230,6 +170,7 @@ def k1_bound_ms(T, M, Q):
 
 def phase_k1(psi2):
     """Phase 3: K1 against its plain version; returns per-shape results."""
+    from rgp_tpu_torch.bench.psi2_times import device_per_call, time_cuda_ms
     from rgp_tpu_torch.kernels import RBF
 
     dev = torch.device("cuda")
@@ -275,11 +216,15 @@ def phase_k1(psi2):
 
 
 def k2_bound_ms(T, M, Q):
-    """Least time for K2's work: (4Q+8) FP32 operations plus one exp per
-    (t, m, n) element, and g + g^T and -out g per (m, n), at the FP32 peak,
-    against the inputs (base, E, D1, w, Z, g, out) read once and the outputs
-    (dbase, dE, dD1, dw, dzC) written once."""
-    ops = T * M * M * (4 * Q + 8 + 1) + 2 * M * M
+    """Least time for K2's work at the FP32 peak, against the inputs (base,
+    E, D1, w, Z, g, out) read once and the outputs (dbase, dE, dD1, dw, dzC)
+    written once. PGs = P (g + g^T) is symmetric in (m, n), so the function
+    needs per timestep M(M-1)/2 pairs m < n at (6Q+10) operations plus one
+    exp (C once, the exp's argument and the product with Gs once, S and dE
+    for both rows) and M diagonal elements at (4Q+8) plus one exp; then
+    2Q per (t, m) each for dw and dzC, and g + g^T and -out g per (m, n)."""
+    per_t = M * (M - 1) // 2 * (6 * Q + 10 + 1) + M * (4 * Q + 8 + 1)
+    ops = T * per_t + 4 * T * M * Q + 2 * M * M
     nbytes = 4 * (2 * T + 2 * T * M + 4 * M * M + 2 * T * Q + 2 * M * Q)
     t_ops, t_bytes = ops / _FP32_OPS_PER_S, nbytes / _HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -298,6 +243,7 @@ def phase_k2(psi2):
     streams, all five outputs, with a random cotangent; a transposed and an
     expanded cotangent against their dense copies; returns per-shape
     results."""
+    from rgp_tpu_torch.bench.psi2_times import device_per_call, time_cuda_ms
     from rgp_tpu_torch.kernels import RBF
 
     dev = torch.device("cuda")
@@ -637,13 +583,6 @@ def ptxas_report(log):
 
 
 def main():
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build K1 and K2, run phases 1-3 only (checks and times at the four shapes), "
-                         "print them and stop: for comparing two checkouts' kernels in one call")
-    kernels_only = ap.parse_args().kernels_only
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     root = os.path.dirname(os.path.abspath(__file__))
@@ -679,9 +618,6 @@ def main():
 
     k1_rows = phase_k1(psi2)  # phase 3
     k2_rows = phase_k2(psi2)
-    if kernels_only:
-        print("kernels only", json.dumps({"card": card, "k1": k1_rows, "k2": k2_rows}))
-        return
     phase_vjp(psi2, psi_stats)
     serving = phase_serving(psi2, psi_stats)  # phase 4
     phase_f32_lane(psi2)

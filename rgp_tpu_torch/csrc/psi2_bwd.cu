@@ -19,12 +19,16 @@
 // Neither the (T, M, M) tensor nor the (T, M, Q) tensor S reaches device
 // memory, and one launch computes all six outputs.
 //
-// What bounds it on this card: per element (t, m, n) the function needs about
+// What bounds it on this card: per element (t, m, n) this kernel does about
 // 4Q+8 FP32 operations plus one exp (Q FFMAs to rebuild C, Q to accumulate S,
 // and the exp's argument, the product with Gs and the dE sum), over T*M^2
-// elements; its bytes are O(TM + M^2 + TQ + MQ), negligible. So it is bound by
-// FP32 issue. At config 1 (T=512, M=100, Q<=20) the work is a few
-// microseconds and the launch is a large share of it.
+// elements. PGs is symmetric in (m, n), so the least the function needs is
+// T*M(M+1)/2 pairs, each one C, one exp and the S and dE updates of both
+// rows: about 6Q+10 operations plus the exp, three quarters of this kernel's
+// work at Q = 32. Walking every n instead keeps each S and dE row inside one
+// thread, with no cross-block sum of rows. Its bytes are O(TM + M^2 + TQ +
+// MQ), negligible. So it is bound by FP32 issue. At config 1 (T=512, M=100,
+// Q<=20) the work is a few microseconds and the launch is a large share of it.
 //
 // What the design does about it:
 //  * Layout. A block owns 32 m rows (one per lane) and a T range; its 8 warps
@@ -49,12 +53,12 @@
 //  * Occupancy. __launch_bounds__(256, 2) for Q <= 32: at most 128
 //    registers, two 256-thread blocks per SM. The dzC partial lives in shared
 //    memory (the warps add their timestep's w S in warp order), not in
-//    registers. The Q <= 64 and 128 instances keep one block per SM.
+//    registers. The Q = 128 instance keeps one block per SM.
 //  * No Q test in the n loop. Q runs at the compile-time width qmax_of(Q)
-//    (4, 8, 16, 20, 24, 32, 64 or 128), the rows are zero-padded to it, and
-//    the q loops cover it whole: a run-time Q test cost a predicate per float4
-//    and the registers that pushed Q = 32 into spills. The loop takes two n a
-//    pass, so two exp chains are in flight.
+//    (4, 8, 20, 32 or 128, as in psi2_fwd.cu), the rows are zero-padded to
+//    it, and the q loops cover it whole: a run-time Q test cost a predicate
+//    per float4 and the registers that pushed Q = 32 into spills. The loop
+//    takes two n a pass, so two exp chains are in flight.
 //  * One launch, deterministic. dbase and dw are partial over m tiles and dzC
 //    over T ranges. Each block writes its partials, then takes two tickets (an
 //    integer atomicAdd on a counter per T range and per m tile, after
@@ -114,7 +118,7 @@ __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 // the compile-time width a Q runs at: the rows are padded to it with zeros,
 // and the q loops run over all of it without a test
 __host__ __device__ constexpr int qmax_of(int q) {
-  return q <= 4 ? 4 : q <= 8 ? 8 : q <= 16 ? 16 : q <= 20 ? 20 : q <= 24 ? 24 : q <= 32 ? 32 : q <= 64 ? 64 : 128;
+  return q <= 4 ? 4 : q <= 8 ? 8 : q <= 20 ? 20 : q <= 32 ? 32 : 128;
 }
 
 // shared memory, in floats: Z (nc x qp) | D1^T (nc x kDS) | Gs^T (nc x kDS) |
@@ -263,7 +267,7 @@ psi2_bwd_kernel(const BwdArgs a) {
   constexpr int kQP = round4(QMAX);
   constexpr bool kHoldZ = QMAX <= 32;
   constexpr int kUnrollN = 2;  // two n a pass
-  constexpr int kStageBatch = QMAX <= 24 ? 4 : 1;
+  constexpr int kStageBatch = QMAX <= 20 ? 4 : 1;
   extern __shared__ __align__(16) float smem[];
   const int Q = a.Q, M = a.M, T = a.T, nc = a.nc;
   constexpr int qp = kQP;  // = a.qp: the host lays shared memory out for this instance
@@ -500,11 +504,8 @@ extern "C" int rgp_psi2_bwd(const float* base, const float* E, const float* D1, 
   switch (qmax_of(Q)) {
     case 4: return launch<4>(a, grid, bytes, s);
     case 8: return launch<8>(a, grid, bytes, s);
-    case 16: return launch<16>(a, grid, bytes, s);
     case 20: return launch<20>(a, grid, bytes, s);
-    case 24: return launch<24>(a, grid, bytes, s);
     case 32: return launch<32>(a, grid, bytes, s);
-    case 64: return launch<64>(a, grid, bytes, s);
   }
   return launch<kMaxQ>(a, grid, bytes, s);
 }

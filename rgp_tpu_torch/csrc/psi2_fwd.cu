@@ -29,14 +29,16 @@
 //    rows and columns and base serve the whole patch. Forming w_t * z_m per
 //    patch instead would cost 1.5 Q FP32 operations an element at 2 x 2 and
 //    keep z in shared memory. zz takes (patch size) x Q registers, so the
-//    patch follows Q: 2 x 2 on 16 x 16 threads for Q <= 24 (two blocks per
+//    patch follows Q: 2 x 2 on 16 x 16 threads for Q <= 20 (two blocks per
 //    SM, __launch_bounds__(256, 2)), 1 x 2 on 32 x 16 threads for Q <= 32 (one
 //    512-thread block per SM, <= 128 registers), one element a thread above.
 //    Each element's sum over q runs in 4 / (patch size) independent chains,
 //    so every thread has 4 FFMA chains in flight. Q runs at the compile-time
-//    width qmax_of(Q) (4, 8, 16, 20, 24, 32, 64 or 128), the w rows are
-//    zero-padded to it and the q loop covers it whole: a run-time Q test
-//    there cost a branch per float4.
+//    width qmax_of(Q), the w rows are zero-padded to it and the q loop covers
+//    it whole: a run-time Q test there cost a branch per float4. The widths
+//    are those of the measured shapes: 4 (config 1's output layer, Q = 1), 8
+//    (Q = 5), 20 (config 1's hidden layer), 32 (the production shape) and 128,
+//    the largest Q taken; any other Q pads to the next of them.
 //  * Staging. w, base and the tile's E rows and columns go through shared
 //    memory in stages of kStage timesteps, by cp.async into two buffers: the
 //    copy of stage k+1 is in flight while stage k computes.
@@ -70,13 +72,13 @@ __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 // the compile-time width a Q runs at: the w rows are padded to it with zeros,
 // and the q loop runs over all of it without a test
 __host__ __device__ constexpr int qmax_of(int q) {
-  return q <= 4 ? 4 : q <= 8 ? 8 : q <= 16 ? 16 : q <= 20 ? 20 : q <= 24 ? 24 : q <= 32 ? 32 : q <= 64 ? 64 : 128;
+  return q <= 4 ? 4 : q <= 8 ? 8 : q <= 20 ? 20 : q <= 32 ? 32 : 128;
 }
 __host__ __device__ constexpr int tile_of(int q) { return q <= 32 ? 32 : 16; }
-__host__ __device__ constexpr int patch_m(int q) { return q <= 24 ? 2 : 1; }
+__host__ __device__ constexpr int patch_m(int q) { return q <= 20 ? 2 : 1; }
 __host__ __device__ constexpr int patch_n(int q) { return q <= 32 ? 2 : 1; }
 __host__ __device__ constexpr int threads_of(int q) { return tile_of(q) * tile_of(q) / (patch_m(q) * patch_n(q)); }
-__host__ __device__ constexpr int blocks_per_sm(int q) { return q <= 24 ? 2 : 1; }
+__host__ __device__ constexpr int blocks_per_sm(int q) { return q <= 20 ? 2 : 1; }
 
 struct FwdArgs {
   const float* base;
@@ -314,11 +316,8 @@ extern "C" int rgp_psi2_fwd(const float* base, const float* E, const float* D1, 
   switch (qmax_of(Q)) {
     case 4: return launch<4>(a, s);
     case 8: return launch<8>(a, s);
-    case 16: return launch<16>(a, s);
     case 20: return launch<20>(a, s);
-    case 24: return launch<24>(a, s);
     case 32: return launch<32>(a, s);
-    case 64: return launch<64>(a, s);
   }
   return launch<kMaxQ>(a, s);
 }

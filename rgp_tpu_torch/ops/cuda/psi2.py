@@ -77,13 +77,13 @@ def _cdiv(a, b):
 
 def fwd_tile(Q: int) -> int:
     """K1's output tile edge (``tile_of`` in psi2_fwd.cu): 32 up to Q = 32,
-    where each thread owns a 2 x 2 (Q <= 24) or 1 x 2 patch, and 16 above,
+    where each thread owns a 2 x 2 (Q <= 20) or 1 x 2 patch, and 16 above,
     one element a thread."""
     return 32 if Q <= 32 else 16
 
 
 def _fwd_blocks_per_sm(Q: int) -> int:
-    return 2 if Q <= 24 else 1  # blocks_per_sm in psi2_fwd.cu
+    return 2 if Q <= 20 else 1  # blocks_per_sm in psi2_fwd.cu
 
 
 @functools.lru_cache(maxsize=256)

@@ -239,6 +239,37 @@ def test_t_split_covers_t_exactly(T, M):
         assert n * (n + 1) // 2 * n_split <= max(n * (n + 1) // 2, 4 * 132 * 2)  # at most 4 waves
 
 
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_order_spread_orders_keep_the_sums(rng, monkeypatch, k):
+    """rgp_tpu_torch.bench.order_spread's order k: T ranges k + 1 times as
+    long still cover T exactly (K2's in whole 8-step stages), and K1 and K2
+    under them still match the Pallas kernels in interpret mode."""
+    from rgp_tpu_torch.bench.order_spread import longer_ranges
+
+    for T, M in ((1, 1), (40, 24), (502, 100), (2048, 256)):
+        n, t_per = longer_ranges(psi2.t_split, k)(T, M, 20)
+        assert (n - 1) * t_per < T <= n * t_per
+        n, t_per = longer_ranges(psi2.bwd_split, k)(T, M)
+        assert (n - 1) * t_per < T <= n * t_per and t_per % 8 == 0
+    T, M, Q = 70, 24, 3
+    planned = psi2.t_split(T, M, Q)[1], psi2.bwd_split(T, M)[1]
+    monkeypatch.setattr(psi2, "t_split", longer_ranges(psi2.t_split, k))
+    monkeypatch.setattr(psi2, "bwd_split", longer_ranges(psi2.bwd_split, k))
+    assert (psi2.t_split(T, M, Q)[1], psi2.bwd_split(T, M)[1]) == ((k + 1) * planned[0], (k + 1) * planned[1])
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s))
+    G = rng.standard_normal((M, M))
+    args32 = [x.to(torch.float32).contiguous() for x in (*pre, torch.tensor(Z))]
+    jargs = [jnp.asarray(x.numpy()) for x in args32]
+    out = psi2.psi2_time_sum(*args32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(_psi2_pallas_raw(*jargs, bt=8, bm=64, interpret=True)),
+                               rtol=2e-4, atol=2e-5)
+    grads = psi2.psi2_time_sum_bwd(*args32, torch.tensor(G, dtype=torch.float32), out)
+    ref = _psi2_bwd_raw(*jargs, jnp.asarray((G + G.T).astype(np.float32)), bt=8, bm=64, interpret=True)
+    for a, b in zip((grads[0], grads[1], grads[3], grads[4]), ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-4, atol=3e-4)
+
+
 # "gs_shape": the cotangent's shape (K2 now takes g and forms Gs itself; a
 # non-contiguous g is read through its strides, so it is no longer refused)
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "q", "gs_shape", "g_dtype", "out_shape",
