@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 3. Hold K1 and K2 against their plain PyTorch versions, run in float64 on the
    card from the same float32 inputs, at the config-1 layer shapes (T, M, Q) =
    (512, 100, 20) and (512, 100, 1), a shape that does not align to tiles
-   (65, 130, 5) and a production shape (2048, 256, 32), and at shapes whose
+   (65, 130, 5), a production shape (2048, 256, 32), the config-2 hidden
+   layers (250, 100, 16) and (250, 100, 12) (Q padded to the compiled width
+   20; config 2's output layer is (250, 100, 1)), and at shapes whose
    K2 columns do not fit in shared memory, (40, 600, 128) (both kernels) and
    (24, 1200, 20) (K2). Tolerance per element: K1 |k - p| <= 2e-4 |p| +
    2e-5 max|p|, and its output exactly symmetric; K2, all five outputs with a
@@ -52,6 +54,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    Adam(1e-2) steps must pass the golden trajectory at steps 0, 9 and 24 at
    rtol 1e-6 (step 49 is printed only: the reference trajectory crosses a
    ladder rung there, ROADMAP.md Queue 3).
+7. Configs 2 and 3 in float32 through ``rgp_tpu_torch.bench.harness``, the
+   entry point of ``python -m rgp_tpu_torch.bench``. Config 2: ``rgp2_mlp``
+   on drives at full width (T=250 train, wins [0,6,6], u_win 10, M=100,
+   back-constraint MLP (32,)), 300 Adam steps, 1 restart. Counted over the
+   run: K2 exactly 3 launches per step (two hidden layers and the output), K1
+   at least 3, the plain Psi2 path never. Every loss finite, the last ELBO
+   above the first, the harness's freerun over the 250 test steps finite
+   with positive variances (losses, means, variances, config and loss are
+   the fit that ``run(return_fit=True)`` kept). Print it/s, ms per steady
+   step, the freerun RMSE beside the zero predictor's and the degeneracy
+   flags, and time and profile 10 more steps of that loss from the trained
+   point (device busy share, device ops per step). Config 3: ``gp_narx``
+   and ``gp_narx_matern`` on actuator at M=50, 1000 steps each: every loss
+   finite, the ELBO rises; print it/s, the first and last ELBO, the RMSE
+   beside the zero predictor's and the flags; then time and profile 10
+   steady ``gp_narx`` steps in the same way.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -75,7 +93,12 @@ _GOLDEN_TRAJ = {0: -5946.347076393514, 9: -3795.857900524881, 24: -2375.03728912
 _TRAIN_STEPS = 1000
 _FP32_OPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores
 _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-_K1_SHAPES = [(512, 100, 20), (512, 100, 1), (65, 130, 5), (2048, 256, 32)]
+# config 1's layers, a ragged shape, a production shape, then config 2's
+# hidden layers (Q 16 and 12 run at the compiled width 20; its output layer is
+# (250, 100, 1))
+_K1_SHAPES = [(512, 100, 20), (512, 100, 1), (65, 130, 5), (2048, 256, 32), (250, 100, 16), (250, 100, 12)]
+_CONFIG2_STEPS = 300  # rgp_tpu/bench/all.py's quick sweep
+_CONFIG3_STEPS = 1000  # rgp_tpu/bench/all.py's config-3 rows
 # shapes whose K2 columns do not fit in shared memory: the kernel streams them
 _K2_STREAM_SHAPES = [(40, 600, 128), (24, 1200, 20)]
 
@@ -562,6 +585,77 @@ def phase_golden():
         check(traj[i]["rel"] <= 1e-6, f"f64 golden trajectory step {i}: {traj[i]}")
 
 
+def _harness_run(harness, task, method, **kw):
+    """One ``harness.run``, its kept fit returned beside the record; every
+    loss must be finite and the last ELBO above the first."""
+    out, fit = harness.run(task, method, return_fit=True, **kw)
+    losses = fit.res.losses.double().cpu().numpy()
+    check(losses.shape == (kw["iters"],) and bool(np.isfinite(losses).all()), f"{method}: a loss is not finite")
+    check(-losses[-1] > -losses[0], f"{method} did not raise the ELBO: {-losses[0]} -> {-losses[-1]}")
+    return out, fit
+
+
+def _steady_steps(fit, label, steps=10):
+    """Host time per Adam step of the fit's own loss from its trained point,
+    then one profiled run of ``steps``."""
+    from rgp_tpu_torch import train
+
+    def run():
+        return train.fit_adam(fit.loss, fit.res.params, iters=steps, learning_rate=1e-2)
+
+    ms = time_host_ms(run, n=3) / steps
+    return ms, profile_device(run, label, steps)
+
+
+def phase_configs_2_3(psi2, psi_stats):
+    """Phase 7: configs 2 and 3 through the benchmark harness in float32 on
+    the card, the counts set to 0 just before each run and read just after."""
+    from rgp_tpu_torch.bench import harness
+
+    psi2.launches = 0
+    psi2.bwd_launches = 0
+    psi_stats.plain_psi2_calls = 0
+    c2, fit2 = _harness_run(harness, "drives", "rgp2_mlp", iters=_CONFIG2_STEPS, restarts=1)
+    counts = {"k1": psi2.launches, "k2": psi2.bwd_launches, "plain_psi2_calls": psi_stats.plain_psi2_calls}
+    print("config2 launches", json.dumps({**counts, "steps": _CONFIG2_STEPS}))
+    n_layers = fit2.cfg.n_hidden + 1  # two hidden layers and the output
+    check(n_layers == 3, f"config 2 has {n_layers} psi layers, want 3")
+    check(counts["k2"] == n_layers * _CONFIG2_STEPS,
+          f"config 2: K2 launched {counts['k2']} times in {_CONFIG2_STEPS} steps, want {n_layers} per step")
+    check(counts["k1"] >= n_layers * _CONFIG2_STEPS,
+          f"config 2: K1 launched {counts['k1']} times in {_CONFIG2_STEPS} steps, want >= {n_layers} per step")
+    check(counts["plain_psi2_calls"] == 0, f"config 2 took the plain Psi2 path {counts['plain_psi2_calls']} times")
+
+    # the harness's own freerun over the 250 test steps: finite means,
+    # positive variances (its record gives only the RMSE)
+    fm, fv = fit2.means, fit2.vars
+    check(fm.shape == (250, 1) and bool(torch.isfinite(fm).all() and (fv > 0).all()),
+          "config 2 freerun: non-finite mean or non-positive variance")
+
+    ms_step, prof = _steady_steps(fit2, "config2 training steps")
+    row = {"config": "rgp2_mlp drives T=250 M=100 float32, cosine decay 1e-2 -> 1e-4",
+           "steps": _CONFIG2_STEPS, "iters_per_s_harness": c2["iters_per_sec"], "ms_per_step_steady": ms_step,
+           "elbo_first": c2["elbo_first"], "elbo_last": c2["elbo_last"], "freerun_rmse": c2["freerun_rmse"],
+           "zero_predictor_rmse": c2["zero_predictor_rmse"], "degenerate_reasons": c2["degenerate_reasons"],
+           "wall_seconds": c2["wall_seconds"], "device_busy_share": prof["device_busy_share"],
+           "device_ops_per_step": prof["device_ops_per_step"]}
+    print("config2", json.dumps(row))
+    print("config2 harness", json.dumps(c2))
+
+    for method in ("gp_narx", "gp_narx_matern"):
+        c3, fit3 = _harness_run(harness, "actuator", method, iters=_CONFIG3_STEPS, num_inducing=50)
+        print("config3", json.dumps({k: c3[k] for k in (
+            "method", "iters", "iters_per_sec", "wall_seconds", "elbo_first", "elbo_last", "freerun_rmse",
+            "zero_predictor_rmse", "degenerate_reasons", "final_noise_min")}))
+        check(np.isfinite(c3["freerun_rmse"]), f"config 3 {method}: freerun RMSE not finite")
+        if method == "gp_narx":  # config 3's steady steps (RBF), as for config 2
+            ms3, prof3 = _steady_steps(fit3, "config3 training steps")
+            print("config3 steady", json.dumps({"method": method, "ms_per_step_steady": ms3,
+                                                "device_busy_share": prof3["device_busy_share"],
+                                                "device_ops_per_step": prof3["device_ops_per_step"]}))
+    return counts
+
+
 def ptxas_report(log):
     """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
     instance, from the ptxas report nvcc wrote beside the library."""
@@ -624,6 +718,7 @@ def main():
     training = phase_training(psi2, psi_stats)  # phase 5
     phase_f32_lane_trained(psi2)
     phase_golden()  # phase 6
+    config2 = phase_configs_2_3(psi2, psi_stats)  # phase 7
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
@@ -644,10 +739,10 @@ def main():
     print(json.dumps({"kernels": [
         row("psi2_fwd", "rgp_tpu_torch/csrc/psi2_fwd.cu", "rgp_tpu/ops/pallas/psi2.py:147",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
-            {"training": training["k1"], "serving": serving}, k1_rows),
+            {"training": training["k1"], "serving": serving, "config2_training": config2["k1"]}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
-            {"training": training["k2"], "serving": 0}, k2_rows),
+            {"training": training["k2"], "serving": 0, "config2_training": config2["k2"]}, k2_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -4,12 +4,52 @@ Each module mirrors the layout and names of its counterpart in ``rgp_tpu``
 (``rgp_tpu/linalg.py`` -> ``rgp_tpu_torch/linalg.py`` and so on); the JAX
 package is the reference each module is tested against in f64 on the CPU.
 
-Entry points that create tensors (``models.rgp.init_params``,
-``data.datasets.standardized_tensors``, ``convert.params_from_jax``) run on the
-card unless the caller passes ``device="cpu"``; every other function follows
-the device of its input tensors. The RBF Psi2 time sum on uncertain inputs runs
-in a hand-written CUDA kernel (``ops/cuda/psi2.py``, ``csrc/psi2_fwd.cu``) for
-float32 CUDA tensors.
+Entry points that create tensors (``init``, the models' ``init_params``,
+``data.datasets.standardized_tensors``, ``convert.params_from_jax``,
+``bench.harness.run``) run on the card unless the caller passes
+``device="cpu"``; every other function follows the device of its input
+tensors. The RBF Psi2 time sum on uncertain inputs runs in hand-written CUDA
+kernels (``ops/cuda/psi2.py``, ``csrc/psi2_{fwd,bwd}.cu``) for float32 CUDA
+tensors.
+
+Public surface, for what is ported:
+
+    import rgp_tpu_torch as rgp
+    cfg    = rgp.DeepRGP(wins=[0, 20], u_win=20, y_dim=Dy, u_dim=Du,
+                         num_inducing=100, back_cstr=False)
+    params = rgp.init(cfg, Y, U)
+    fit    = rgp.fit(lambda p: -rgp.elbo(cfg, p, Y, U), params, iters=10_000)
+    sim    = rgp.freerun(cfg, fit.params, Y, U, U_test)      # means + vars
 """
 
+from . import kernels, linalg, params
+from .data import datasets
+from .data.windows import Standardizer, narx_design
+from .models import gp, gp_narx, sparse_gp
+from .models.rgp import RGPConfig, elbo, freerun
+from .models.rgp import deep_rgp_config as DeepRGP
+from .models.rgp import init_params as init
+from .ops.psi_stats import PsiStats, psi_statistics
+from .train import fit_adam as fit
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "DeepRGP",
+    "RGPConfig",
+    "init",
+    "elbo",
+    "freerun",
+    "fit",
+    "psi_statistics",
+    "PsiStats",
+    "Standardizer",
+    "narx_design",
+    "datasets",
+    "kernels",
+    "linalg",
+    "params",
+    "gp",
+    "sparse_gp",
+    "gp_narx",
+]

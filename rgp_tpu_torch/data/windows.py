@@ -13,7 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["lagged", "current_window", "Standardizer", "np_lagged", "np_current_window"]
+__all__ = ["lagged", "current_window", "narx_design", "Standardizer", "np_lagged", "np_current_window",
+           "np_narx_design"]
 
 
 def _np_stack_lags(X, lags):
@@ -39,6 +40,25 @@ def np_current_window(X, L: int):
     return _np_stack_lags(X, list(range(0, L)))
 
 
+def _narx(Y, U, y_win, u_win, lagged_fn, window_fn, cat):
+    feats = []
+    if y_win > 0:
+        feats.append(lagged_fn(Y, y_win))
+    if U is not None and u_win > 0:
+        feats.append(window_fn(U, u_win))
+    if not feats:
+        raise ValueError("need y_win > 0 or (U, u_win > 0)")
+    X = cat(feats)
+    start = max(y_win, u_win - 1 if u_win > 0 else 0)
+    return X[start:], Y[start:]
+
+
+def np_narx_design(Y, U=None, y_win: int = 0, u_win: int = 0):
+    """numpy twin of :func:`narx_design`."""
+    return _narx(np.asarray(Y), None if U is None else np.asarray(U), y_win, u_win,
+                 np_lagged, np_current_window, lambda f: np.concatenate(f, axis=-1))
+
+
 def _stack_lags(X, lags):
     """X: (T, D); lags: nonneg ints k meaning x_{t-k}; rows with t-k < 0 are zero."""
     T = X.shape[0]
@@ -60,6 +80,13 @@ def lagged(X, L: int):
 def current_window(X, L: int):
     """(T, D) -> (T, L*D): [x_t, ..., x_{t-L+1}]."""
     return _stack_lags(X, list(range(0, L)))
+
+
+def narx_design(Y, U=None, y_win: int = 0, u_win: int = 0):
+    """A GP-NARX regression problem: targets y_t, inputs [y_{t-1..t-y_win},
+    u_t..u_{t-u_win+1}], trimmed to valid rows. Returns (X_design, Y_targets)
+    with T' = T - max(y_win, u_win-1) rows."""
+    return _narx(Y, U, y_win, u_win, lagged, current_window, lambda f: torch.cat(f, dim=-1))
 
 
 class Standardizer(NamedTuple):

@@ -1,6 +1,6 @@
 """Collapsed sparse variational inference with uncertain inputs (port of
-``rgp_tpu/inference/collapsed_vi.py``: the bound, the posterior and the
-moment-matched predictive).
+``rgp_tpu/inference/collapsed_vi.py``: the bound, the posterior, the
+moment-matched predictive, posterior samples and predictive summaries).
 
 Bound, with beta = 1/sigma^2, assembled in a detached spectral whitening basis
 W of Kmm so every factorized matrix is ~identity-conditioned:
@@ -34,6 +34,9 @@ __all__ = [
     "posterior",
     "predict_uncertain",
     "predict_certain",
+    "posterior_f_samples",
+    "log_predictive_density",
+    "predict_quantiles",
     "whitening_basis",
     "Whitening",
     "default_spectral_floor",
@@ -232,6 +235,35 @@ def predict_certain(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, Xs, *
     if include_noise:
         var = var + noise
     return mean, var.expand(mean.shape)
+
+
+def posterior_f_samples(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, Xs,
+                        generator: torch.Generator, *, n_samples: int = 10,
+                        include_noise: bool = False):
+    """Joint samples of f* at Xs from the sparse posterior. The standard
+    normal draws come from ``generator``, on its own device, and are moved to
+    the inputs' device. Returns (n_samples, T*, D)."""
+    mean, cov = predict_certain(kern, kp, Z, log_noise, post, Xs, full_cov=True,
+                                include_noise=include_noise)
+    L = jitchol(cov)
+    eps = torch.randn((n_samples, Xs.shape[0], mean.shape[1]), generator=generator,
+                      dtype=mean.dtype, device=generator.device).to(mean.device)
+    return mean[None] + torch.einsum("ts,nsd->ntd", L, eps)
+
+
+def log_predictive_density(y, mean, var):
+    """Mean Gaussian log predictive density of held-out targets. All args
+    (T, D); returns a scalar."""
+    return (-0.5 * (_LOG2PI + torch.log(var)) - 0.5 * (y - mean) ** 2 / var).mean()
+
+
+def predict_quantiles(mean, var, quantiles=(2.5, 97.5)):
+    """Gaussian predictive quantiles in percent: a tuple of tensors shaped
+    like ``mean``, one per requested percentile."""
+    import scipy.stats
+
+    sd = torch.sqrt(var)
+    return tuple(mean + float(scipy.stats.norm.ppf(q / 100.0)) * sd for q in quantiles)
 
 
 def predict_uncertain(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, mu_star,

@@ -8,8 +8,11 @@ The model is a frozen config (:class:`RGPConfig`) plus a nested parameter dict
    "out": {"kern": {...}, "Z", "log_noise"}}
 
 of unconstrained tensors, with the same key names as the JAX package's pytree
-(:func:`rgp_tpu_torch.convert.params_from_jax` carries one over). Layers are
-indexed deepest-first (layer 0 is driven by U):
+(:func:`rgp_tpu_torch.convert.params_from_jax` carries one over). With
+back-constraints (``back_cstr``) it also holds ``"encoder"``, one MLP per
+hidden layer mapping the windows of Y and U to that layer's q(X) means (and,
+with ``amortize_var``, its log-variances). Layers are indexed deepest-first
+(layer 0 is driven by U):
 
   layer 0:  xbar^0_t = [x^0_{t-1..t-L0}, u_t..u_{t-Lu+1}]
   layer h:  xbar^h_t = [x^h_{t-1..t-Lh}, x^{h-1}_t..x^{h-1}_{t-Lh+1}]
@@ -19,9 +22,6 @@ indexed deepest-first (layer 0 is driven by U):
 every device: on float32 CUDA tensors its Psi2 sums run through the kernels K1
 and K2. :func:`freerun` is the serving path: posteriors once, then a
 closed-loop moment-matched rollout, one Python step per test input.
-
-Back-constraints (the MLP encoder, ``back_cstr``/``amortize_var``) are not
-ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ from ..inference.collapsed_vi import collapsed_bound, posterior, predict_uncerta
 from ..kernels import RBF, Kernel
 from ..ops.psi_stats import psi_statistics
 from ..params import np_positive_inv, positive
-from .sparse_gp import kmeans_init
+from .encoder import init_mlp, mlp_apply
+from .sparse_gp import host, kmeans_init
 
 __all__ = ["LayerSpec", "RGPConfig", "init_params", "elbo", "neg_elbo", "freerun", "predict_train",
            "deep_rgp_config", "compute_whitenings"]
@@ -73,13 +74,6 @@ class RGPConfig:
         return len(self.layers)
 
 
-def _require_no_encoder(cfg: RGPConfig):
-    if cfg.back_cstr or cfg.amortize_var:
-        raise NotImplementedError(
-            "back-constraints (back_cstr/amortize_var) are not ported to rgp_tpu_torch yet"
-        )
-
-
 def deep_rgp_config(wins, u_win: int, y_dim: int, u_dim: int, num_inducing: int = 100,
                     q_dims=None, kernels=None, out_kernel: Optional[Kernel] = None,
                     back_cstr: bool = False, mlp_hidden: Tuple[int, ...] = (),
@@ -104,13 +98,11 @@ def deep_rgp_config(wins, u_win: int, y_dim: int, u_dim: int, num_inducing: int 
         layer_specs.append(LayerSpec(kernel=k, win=w, q_dim=q, num_inducing=num_inducing))
     out_win = max(1, w_out)
     ok = out_kernel if out_kernel is not None else RBF(input_dim=out_win * q_dims[-1])
-    cfg = RGPConfig(
+    return RGPConfig(
         layers=tuple(layer_specs), out_kernel=ok, out_num_inducing=num_inducing,
         out_win=out_win, u_win=u_win, y_dim=y_dim, u_dim=u_dim, back_cstr=back_cstr,
         mlp_hidden=tuple(mlp_hidden), amortize_var=amortize_var, noise_floor=noise_floor,
     )
-    _require_no_encoder(cfg)
-    return cfg
 
 
 # ----------------------------------------------------------------- init
@@ -123,21 +115,17 @@ def _smooth(y, width: int = 5):
     return np.stack([np.convolve(y[:, d], k, mode="same") for d in range(y.shape[1])], -1)
 
 
-def _host(x):
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    return np.asarray(x, np.float64)
-
-
 def init_params(cfg: RGPConfig, Y, U, *, noise: float = 0.01, lam_init: float = 0.01,
                 seed: int = 0, dtype=torch.float32, device=None):
     """Data-driven initialization, computed in numpy from
     ``np.random.default_rng(seed)`` exactly as the JAX package does, so the
-    result is array-equal to ``rgp_tpu.models.rgp.init_params``. ``device=None``
-    means the card."""
-    _require_no_encoder(cfg)
+    result is array-equal to ``rgp_tpu.models.rgp.init_params``. With
+    ``back_cstr`` the encoder weights are drawn from
+    ``torch.Generator().manual_seed(seed)``: ``jax.random`` cannot be
+    reproduced, so those differ from the JAX package's. ``device=None`` means
+    the card."""
     dev = resolve_device(device)
-    Y, U = _host(Y), _host(U)
+    Y, U = host(Y), host(U)
     rng = np.random.default_rng(seed)
 
     def t(x):
@@ -178,7 +166,15 @@ def init_params(cfg: RGPConfig, Y, U, *, noise: float = 0.01, lam_init: float = 
         "Z": t(Zout),
         "log_noise": np_positive_inv(noise, dtype, dev),
     }
-    return {"layers": layers, "out": out}
+    params = {"layers": layers, "out": out}
+    if cfg.back_cstr:
+        gen = torch.Generator().manual_seed(seed)
+        params["encoder"] = tuple(
+            init_mlp(gen, (spec.win * cfg.y_dim + cfg.u_win * cfg.u_dim, *cfg.mlp_hidden,
+                           spec.q_dim * (2 if cfg.amortize_var else 1)), dtype=dtype, device=dev)
+            for spec in cfg.layers
+        )
+    return params
 
 
 # ----------------------------------------------------------------- ELBO
@@ -192,12 +188,35 @@ def _fln(cfg: RGPConfig, log_noise):
     return torch.log(torch.expm1(positive(log_noise) + cfg.noise_floor))
 
 
-def _hidden_moments(cfg: RGPConfig, params):
-    """Full latent (means, variances) per layer, each (T+L_h, Q_h)."""
+_LOG_LAM_BIAS = -4.605170185988091  # ln(0.01): amortized variances start ~ the
+# reference's 0.01 init when the encoder's raw output is near zero
+
+
+def _hidden_moments(cfg: RGPConfig, params, Y, U):
+    """Full latent (means, variances) per layer, each (T+L_h, Q_h).
+
+    With back-constraints the target-section means are amortized, MLP(window
+    of Y, U); with ``amortize_var`` the encoder's output doubles to (mu,
+    log-variance) per latent dim. Initial-window moments stay free
+    parameters."""
     mus, lams = [], []
-    for lp in params["layers"]:
-        mus.append(torch.cat([lp["mu0"], lp["mu"]], dim=0))
-        lams.append(torch.cat([torch.exp(lp["log_lam0"]), torch.exp(lp["log_lam"])], dim=0))
+    for h, spec in enumerate(cfg.layers):
+        lp = params["layers"][h]
+        mu_t, lam_t = lp["mu"], torch.exp(lp["log_lam"])
+        if cfg.back_cstr:
+            feats = []
+            if spec.win > 0:
+                feats.append(lagged(Y, spec.win))
+            if cfg.u_win > 0:
+                feats.append(current_window(U, cfg.u_win))
+            out = mlp_apply(params["encoder"][h], torch.cat(feats, dim=-1))  # (T, Q or 2Q)
+            if cfg.amortize_var:
+                mu_t = out[:, :spec.q_dim]
+                lam_t = torch.exp(out[:, spec.q_dim:] + _LOG_LAM_BIAS)
+            else:
+                mu_t = out
+        mus.append(torch.cat([lp["mu0"], mu_t], dim=0))
+        lams.append(torch.cat([torch.exp(lp["log_lam0"]), lam_t], dim=0))
     return mus, lams
 
 
@@ -215,11 +234,11 @@ def _layer_inputs(cfg: RGPConfig, h: int, mu_full, lam_full, mu_lower_t, lam_low
     return torch.cat([own_mu, low_mu], dim=-1), torch.cat([own_s, low_s], dim=-1)
 
 
-def _layer_stats(cfg: RGPConfig, params, U, block):
+def _layer_stats(cfg: RGPConfig, params, Y, U, block):
     """Yields (kernel, layer params, psi stats, full latent means, full latent
     variances, window L) for every hidden layer, then the output layer's with
     the last three None."""
-    mus, lams = _hidden_moments(cfg, params)
+    mus, lams = _hidden_moments(cfg, params, Y, U)
     mu_lower_t = lam_lower_t = None
     for h, spec in enumerate(cfg.layers):
         lp = params["layers"][h]
@@ -239,7 +258,7 @@ def elbo(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128, whitening=
     """REVARB evidence lower bound, one scalar. ``whitening``: optional H+1
     precomputed :class:`Whitening` bases (see :func:`compute_whitenings`)."""
     total = 0.0
-    for h, (kern, lp, stats, mu_full, lam_full, L) in enumerate(_layer_stats(cfg, params, U, block)):
+    for h, (kern, lp, stats, mu_full, lam_full, L) in enumerate(_layer_stats(cfg, params, Y, U, block)):
         W = None if whitening is None else whitening[h]
         if mu_full is None:  # output layer
             total = total + collapsed_bound(
@@ -267,13 +286,12 @@ def compute_whitenings(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 1
                        ladder: bool = True):
     """Fresh per-layer spectral whitening bases (H+1 tuple). ``ladder=False``
     pins the spectral floor at its base value and skips the psi pass."""
-    del Y  # the bases depend on the inputs only, as in the JAX package
     if not ladder:
         kerns = [(s.kernel, params["layers"][h]) for h, s in enumerate(cfg.layers)]
         kerns.append((cfg.out_kernel, params["out"]))
         return tuple(whitening_basis(k.K(lp["kern"], lp["Z"])) for k, lp in kerns)
     out = []
-    for kern, lp, stats, *_ in _layer_stats(cfg, params, U, block):
+    for kern, lp, stats, *_ in _layer_stats(cfg, params, Y, U, block):
         Kmm = kern.K(lp["kern"], lp["Z"])
         out.append(whitening_basis(Kmm, stats.psi2, 1.0 / positive(_fln(cfg, lp["log_noise"]))))
     return tuple(out)
@@ -286,12 +304,13 @@ def _posteriors(cfg: RGPConfig, params, Y, U, *, block=None):
     """Per-layer sparse posteriors from the variational state, computed once
     and reused across all freerun steps."""
     posts = []
-    for kern, lp, stats, mu_full, _, L in _layer_stats(cfg, params, U, block):
+    top = None
+    for kern, lp, stats, mu_full, lam_full, L in _layer_stats(cfg, params, Y, U, block):
+        if mu_full is not None:
+            top = (mu_full[L:], lam_full[L:])
         target = Y if mu_full is None else mu_full[L:]
         posts.append(posterior(kern, lp["kern"], lp["Z"], _fln(cfg, lp["log_noise"]), stats, target))
-    mus, lams = _hidden_moments(cfg, params)
-    L = cfg.layers[-1].win
-    return posts, (mus[-1][L:], lams[-1][L:])
+    return posts, top
 
 
 def predict_train(cfg: RGPConfig, params, Y, U, *, include_noise: bool = True):
@@ -313,23 +332,30 @@ def _window(new, buf, W, q_dim):
     return torch.cat([new[None, :], buf[: W - 1].reshape(-1, q_dim)], dim=0).reshape(1, -1)
 
 
-def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test):
+def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test, *, moment_match: bool = True,
+            init_from_train_tail: bool = True):
     """Closed-loop free simulation over test inputs. Each hidden layer's
-    feedback window starts from the tail of its trained variational means;
-    every step is moment-matched through the psi-statistics with the
-    accumulated state uncertainty. Returns (y_means (T*, Dy), y_vars (T*, Dy))."""
+    feedback window starts from the tail of its trained variational means
+    (``init_from_train_tail``; else means 0 and variances 1); with
+    ``moment_match`` every step goes through the psi-statistics with the
+    accumulated state uncertainty, else it plugs in the means alone. Returns
+    (y_means (T*, Dy), y_vars (T*, Dy))."""
     posts, _ = _posteriors(cfg, params, Y_train, U_train)
     H = cfg.n_hidden
-    mus, lams = _hidden_moments(cfg, params)
+    mus, lams = _hidden_moments(cfg, params, Y_train, U_train)
 
     buf_lens = []
     for h, spec in enumerate(cfg.layers):
         need_above = cfg.layers[h + 1].win if h + 1 < H else cfg.out_win
         buf_lens.append(max(spec.win, need_above))
 
-    # most-recent-first buffers, started from the trained latent tails
-    bufs_mu = [torch.flip(mus[h][-B:], [0]) for h, B in enumerate(buf_lens)]
-    bufs_s = [torch.flip(lams[h][-B:], [0]) for h, B in enumerate(buf_lens)]
+    # most-recent-first buffers
+    if init_from_train_tail:
+        bufs_mu = [torch.flip(mus[h][-B:], [0]) for h, B in enumerate(buf_lens)]
+        bufs_s = [torch.flip(lams[h][-B:], [0]) for h, B in enumerate(buf_lens)]
+    else:
+        bufs_mu = [U_test.new_zeros((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)]
+        bufs_s = [U_test.new_ones((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)]
 
     Lu = cfg.u_win
     if Lu > 0:
@@ -360,7 +386,7 @@ def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test):
             x_s = torch.cat([own_s, low_s], dim=-1)
             m, v = predict_uncertain(
                 spec.kernel, lp["kern"], lp["Z"], fl_noise[h], posts[h],
-                x_mu, x_s, include_noise=True,
+                x_mu, x_s if moment_match else None, include_noise=True,
             )
             new_mu.append(m[0])
             new_s.append(v[0])
@@ -371,7 +397,7 @@ def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test):
         top_s = _window(new_s[-1], bufs_s[-1], W, q_top)
         ym, yv = predict_uncertain(
             cfg.out_kernel, op["kern"], op["Z"], fl_out, posts[-1],
-            top_mu, top_s, include_noise=True,
+            top_mu, top_s if moment_match else None, include_noise=True,
         )
         bufs_mu = [torch.cat([new_mu[h][None, :], bufs_mu[h][:-1]], dim=0) for h in range(H)]
         bufs_s = [torch.cat([new_s[h][None, :], bufs_s[h][:-1]], dim=0) for h in range(H)]

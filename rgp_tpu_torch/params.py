@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["softplus", "softplus_inv", "np_positive_inv", "positive", "positive_inv"]
 
 
@@ -26,12 +28,13 @@ def softplus_inv(y):
     return y + torch.log(-torch.expm1(-y))
 
 
-def np_positive_inv(y, dtype, device):
+def np_positive_inv(y, dtype, device=None):
     """Host-side (numpy f64) softplus inverse for initialization code, so the
-    port's init rounds exactly as the JAX package's does."""
+    port's init rounds exactly as the JAX package's does. ``device=None``
+    means the card (:func:`rgp_tpu_torch.device.resolve_device`)."""
     y = np.asarray(y, np.float64)
     x = y + np.log(-np.expm1(-y))
-    return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
 
 
 positive = softplus

@@ -18,9 +18,11 @@ import torch
 from rgp_tpu.data import datasets as jd
 from rgp_tpu.data.windows import Standardizer as JStandardizer
 from rgp_tpu.models import rgp as jr
+from rgp_tpu_torch import kernels as tk
 from rgp_tpu_torch.convert import params_from_jax
 from rgp_tpu_torch.data import datasets as td
 from rgp_tpu_torch.data import windows as tw
+from rgp_tpu_torch.models import encoder as tenc
 from rgp_tpu_torch.models import rgp as tr
 
 _GOLDEN_E0 = -5946.347076392082  # tests/test_golden_regression.py
@@ -143,7 +145,9 @@ def test_freerun_matches_jax(carried):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-7)
 
 
-@pytest.mark.parametrize("entry", ["init_params", "standardized_tensors", "params_from_jax"])
+@pytest.mark.parametrize("entry", ["init_params", "standardized_tensors", "params_from_jax",
+                                   "init_mlp", "RBF.init", "Matern52.init", "StdPeriodic.init",
+                                   "MLP.init", "Sum.init"])
 def test_constructors_do_not_fall_back_to_cpu(entry, carried):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None builds there")
@@ -152,11 +156,38 @@ def test_constructors_do_not_fall_back_to_cpu(entry, carried):
         "init_params": lambda: tr.init_params(tcfg, tY, tU),
         "standardized_tensors": lambda: td.standardized_tensors(td.actuator()),
         "params_from_jax": lambda: params_from_jax(jax.tree.map(np.asarray, jp), dtype=torch.float64),
+        "init_mlp": lambda: tenc.init_mlp(torch.Generator().manual_seed(0), (3, 4, 2)),
+        "RBF.init": lambda: tk.RBF(input_dim=2).init(),
+        "Matern52.init": lambda: tk.Matern52(input_dim=2).init(),
+        "StdPeriodic.init": lambda: tk.StdPeriodic(input_dim=2).init(),
+        "MLP.init": lambda: tk.MLP(input_dim=2).init(),
+        "Sum.init": lambda: (tk.Linear(input_dim=2) + tk.Bias(input_dim=2)).init(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-def test_encoder_configs_are_refused():
-    with pytest.raises(NotImplementedError):
-        tr.deep_rgp_config(wins=[0, 2], u_win=2, y_dim=1, u_dim=1, back_cstr=True)
+@pytest.mark.parametrize("amortize_var", [False, True])
+def test_back_constrained_config_builds_encoder(amortize_var):
+    """A back_cstr config builds, and init_params makes one MLP per hidden
+    layer of shape (win*y_dim + u_win*u_dim, *mlp_hidden, q_dim*(1 or 2)),
+    zero biases, from the seed."""
+    d = td.standardized_tensors(td.drives(T=64), dtype=torch.float64, device="cpu")
+    cfg = tr.deep_rgp_config(wins=[0, 3, 2], u_win=4, y_dim=1, u_dim=1, num_inducing=8,
+                             q_dims=[2, 1], back_cstr=True, mlp_hidden=(5, 6),
+                             amortize_var=amortize_var)
+    params = tr.init_params(cfg, d.Y, d.U, seed=3, dtype=torch.float64, device="cpu")
+    enc = params["encoder"]
+    assert len(enc) == cfg.n_hidden == 2
+    k = 2 if amortize_var else 1
+    for spec, mlp in zip(cfg.layers, enc):
+        dims = (spec.win * 1 + 4 * 1, 5, 6, spec.q_dim * k)
+        assert [tuple(layer["w"].shape) for layer in mlp] == list(zip(dims[:-1], dims[1:]))
+        for layer in mlp:
+            assert layer["w"].dtype == torch.float64 and not layer["b"].any()
+            assert layer["w"].std() > 0
+    again = tr.init_params(cfg, d.Y, d.U, seed=3, dtype=torch.float64, device="cpu")["encoder"]
+    assert all(torch.equal(a["w"], b["w"]) for x, y in zip(enc, again) for a, b in zip(x, y))
+    assert "encoder" not in tr.init_params(tr.deep_rgp_config(wins=[0, 3], u_win=4, y_dim=1, u_dim=1,
+                                                               num_inducing=8),
+                                            d.Y, d.U, dtype=torch.float64, device="cpu")
