@@ -70,8 +70,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    finite, the ELBO rises; print it/s, the first and last ELBO, the RMSE
    beside the zero predictor's and the flags; then time and profile 10
    steady ``gp_narx`` steps in the same way.
+8. Config 4 in float32 through the harness on ``long_corpus`` at full width
+   (T=16384: a NARX design of 12278 x 15, ``y_win`` 10, ``u_win`` 5, M=100,
+   batch 512): ``gp_narx_collapsed`` and ``svgp_natgrad`` at 1000 steps
+   (``rgp_tpu/bench/all.py``'s quick budget), ``svgp_natgrad_collapsed``,
+   ``gp_narx_minibatch`` and ``gp_narx_minibatch_ema`` cut to 300. Certain
+   inputs: over the five runs K1 and K2 launch 0 times and the plain Psi2 path
+   is never taken. Every route but the EMA one (recorded as diverging in
+   BASELINE.md) must have finite losses, a last ELBO above the first and a
+   finite freerun over the 4096 test steps; the freerun RMSE is printed, not
+   gated (the SVGP scored through its q(u) is recorded as worse than the zero
+   predictor). Per route: the harness record, ms a steady step and device ops
+   and busy share a step (10 steps from the trained point through
+   ``fit_adam`` or ``fit_minibatch``), and the wall time of a 4096-step
+   freerun for ``svgp_natgrad`` and ``gp_narx_collapsed``. Then one
+   ``svgp.elbo`` with uncertain inputs at (T, M, Q) = (512, 100, 20), forward
+   and backward: exactly one K1 and one K2 launch; the Psi2 K1 gave inside it
+   and the gradient of Z through K2 (at the cotangent the bound handed K2)
+   against their plain float64 versions at K1's and K2's tolerances, and
+   the ELBO against the float64 plain bound at 2e-4 relative.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -101,6 +120,13 @@ _CONFIG2_STEPS = 300  # rgp_tpu/bench/all.py's quick sweep
 _CONFIG3_STEPS = 1000  # rgp_tpu/bench/all.py's config-3 rows
 # shapes whose K2 columns do not fit in shared memory: the kernel streams them
 _K2_STREAM_SHAPES = [(40, 600, 128), (24, 1200, 20)]
+# config 4's routes and steps: rgp_tpu/bench/all.py's quick budget (1000) for
+# the exact route and the named SVGP route, the other three cut to 300
+_C4_ROUTES = {"gp_narx_collapsed": 1000, "svgp_natgrad": 1000, "svgp_natgrad_collapsed": 300,
+              "gp_narx_minibatch": 300, "gp_narx_minibatch_ema": 300}
+_C4_BATCH = 512  # rgp_tpu/bench/harness.py's default
+_C4_TIMED_FREERUNS = ("gp_narx_collapsed", "svgp_natgrad")
+_SVGP_UNCERTAIN = (512, 100, 20)  # (T, M, Q): config 1's hidden-layer shape
 
 
 def fail(msg):
@@ -656,6 +682,177 @@ def phase_configs_2_3(psi2, psi_stats):
     return counts
 
 
+def _c4_steady(method, fit, data, steps=10):
+    """Host time per training step of a config-4 route from its trained
+    point, through the training loop the route uses (``fit_adam`` at a fixed
+    whitening for the exact route, ``fit_minibatch`` at batch 512 with the
+    clip, and the natural-gradient block for the SVGP routes; the EMA route's
+    plain minibatch loss), then one profiled run of ``steps``."""
+    from rgp_tpu_torch import train
+    from rgp_tpu_torch.inference.collapsed_vi import whitening_basis
+
+    p0 = fit.res.params
+    if method == "gp_narx_collapsed":
+        with torch.no_grad():
+            wh = whitening_basis(fit.cfg.kernel.K(p0["kern"], p0["Z"]))
+
+        def run():
+            return train.fit_adam(lambda q: fit.loss(q, wh), p0, iters=steps, learning_rate=1e-4)
+    else:
+        ng = {"natgrad_block": "qu", "natgrad_lr": 0.005} if method.startswith("svgp") else {}
+
+        def run():
+            return train.fit_minibatch(fit.loss, p0, data, iters=steps, batch_size=_C4_BATCH, seed=1,
+                                       learning_rate=1e-4, clip_norm=10.0, **ng)
+
+    ms = time_host_ms(run, n=3) / steps
+    return ms, profile_device(run, f"config4 {method} training steps", steps)
+
+
+def phase_config4(psi2, psi_stats, card):
+    """Phase 8: config 4's five routes through the harness in float32 on the
+    card, the counts set to 0 just before and read just after the runs."""
+    from rgp_tpu_torch.bench import harness
+    from rgp_tpu_torch.data import datasets
+    from rgp_tpu_torch.data.windows import narx_design
+
+    d = datasets.standardized_tensors(datasets.long_corpus(), dtype=torch.float32)
+    X, Yt = narx_design(d.Y, d.U, 10, 5)
+    data = {"X": X, "Y": Yt}
+    n_test = d.U_test.shape[0]
+    psi2.launches = 0
+    psi2.bwd_launches = 0
+    psi_stats.plain_psi2_calls = 0
+    fits = {}
+    for method, steps in _C4_ROUTES.items():
+        kw = {} if method == "gp_narx_collapsed" else {"batch_size": _C4_BATCH}
+        rec, fit = harness.run("long_corpus", method, iters=steps, return_fit=True, **kw)
+        print("config4 harness", json.dumps(rec))
+        losses = fit.res.losses.double().cpu().numpy()
+        check(losses.shape == (steps,), f"{method}: {losses.shape[0]} losses for {steps} steps")
+        if method != "gp_narx_minibatch_ema":
+            check(bool(np.isfinite(losses).all()), f"{method}: a loss is not finite")
+            check(-losses[-1] > -losses[0], f"{method} did not raise the ELBO: {-losses[0]} -> {-losses[-1]}")
+            check(fit.means.shape == (n_test, 1) and bool(torch.isfinite(fit.means).all()
+                                                          and (fit.vars > 0).all()),
+                  f"{method} freerun: non-finite mean or non-positive variance")
+        fits[method] = (rec, fit)
+    counts = {"k1": psi2.launches, "k2": psi2.bwd_launches, "plain_psi2_calls": psi_stats.plain_psi2_calls}
+    print("config4 launches", json.dumps({**counts, "steps": sum(_C4_ROUTES.values())}))
+    check(counts == {"k1": 0, "k2": 0, "plain_psi2_calls": 0},
+          f"config 4 (certain inputs) reached the Psi2 time sum: {counts}")
+
+    for method, (rec, fit) in fits.items():
+        ms, prof = _c4_steady(method, fit, data)
+        row = {"method": method, "steps": rec["iters"], "cut": "300 of all.py's 1000 quick-budget steps"
+               if rec["iters"] == 300 else None, "batch_size": None if method == "gp_narx_collapsed" else _C4_BATCH,
+               "iters_per_s_harness": rec["iters_per_sec"], "wall_seconds": rec["wall_seconds"],
+               "ms_per_step_steady": ms, "device_ops_per_step": prof["device_ops_per_step"],
+               "device_busy_share": prof["device_busy_share"], "elbo_first": rec["elbo_first"],
+               "elbo_last": rec["elbo_last"], "freerun_rmse": rec["freerun_rmse"],
+               "zero_predictor_rmse": rec["zero_predictor_rmse"], "degenerate_reasons": rec["degenerate_reasons"],
+               "final_noise_min": rec["final_noise_min"], "card": card}
+        if method in _C4_TIMED_FREERUNS:
+            row["freerun_steps"] = n_test
+            row["freerun_wall_s"] = time_host_ms(fit.freerun, n=1) / 1e3
+        print("config4", json.dumps(row))
+    return counts
+
+
+def phase_svgp_uncertain(psi2, psi_stats):
+    """Phase 8b: one ``svgp.elbo`` with uncertain inputs, forward and
+    backward, on float32 CUDA tensors: exactly one K1 and one K2 launch. The
+    Psi2 that K1 gave inside it is held against the plain version in float64
+    at K1's tolerance, and the gradient of Z through K2 (the VJP of the Psi2
+    sum at the cotangent the bound handed K2) against the plain float64 VJP
+    at the same cotangent at K2's; the ELBO against the float64 plain bound at
+    K1's relative 2e-4. The whole gradient of Z is printed against the
+    float64 plain one beside the float32 plain one's error: the float32
+    bound's Z gradient is a sum of path contributions ~10x its size, so its
+    rounding alone exceeds K2's tolerance, kernel or no kernel (CPU: float32
+    plain against float64, 55x). Returns the launch counts."""
+    from rgp_tpu_torch.inference import svi
+    from rgp_tpu_torch.kernels import RBF
+    from rgp_tpu_torch.models import svgp
+    from rgp_tpu_torch.ops.psi_stats import PsiStats, psi01
+
+    T, M, Q = _SVGP_UNCERTAIN
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(400)
+    X = torch.as_tensor(rng.standard_normal((T, Q)), dtype=torch.float32, device=dev)
+    Xv = torch.as_tensor(rng.uniform(0.05, 0.4, (T, Q)), dtype=torch.float32, device=dev)
+    Y = torch.sin(X.sum(-1, keepdim=True) / math.sqrt(Q))
+    cfg = svgp.SVGPConfig(RBF(input_dim=Q), M)
+    # lengthscale sqrt(Q) keeps Psi2 entries O(1) at this width
+    params = svgp.init_params(cfg, X, seed=0, lengthscale=math.sqrt(Q))
+
+    # the Psi2 that svgp.elbo's K1 produces, kept to read its cotangent
+    captured = []
+    kernel_sum = psi_stats.rbf_psi2_sum
+
+    def capture(*args):
+        out = kernel_sum(*args)
+        out.retain_grad()
+        captured.append(out)
+        return out
+
+    Z = params["Z"].clone().requires_grad_(True)
+    psi2.launches = 0
+    psi2.bwd_launches = 0
+    psi_stats.plain_psi2_calls = 0
+    psi_stats.rbf_psi2_sum = capture
+    try:
+        e = svgp.elbo(cfg, {**params, "Z": Z}, X, Y, X_var=Xv)
+        e.backward()
+        e = e.detach()
+    finally:
+        psi_stats.rbf_psi2_sum = kernel_sum
+    torch.cuda.synchronize()
+    counts = {"k1": psi2.launches, "k2": psi2.bwd_launches, "plain_psi2_calls": psi_stats.plain_psi2_calls}
+    check(counts == {"k1": 1, "k2": 1, "plain_psi2_calls": 0} and len(captured) == 1,
+          f"svgp.elbo with uncertain inputs: launches {counts}, want one K1 and one K2")
+    psi2_k, G = captured[0].detach(), captured[0].grad
+
+    def plain_bound(dtype):
+        q = _cast(params, dtype)
+        Zp = q["Z"].clone().requires_grad_(True)
+        mu, s, y = X.to(dtype), Xv.to(dtype), Y.to(dtype)
+        psi0, psi1 = psi01(cfg.kernel, q["kern"], Zp, mu, s)
+        p2 = psi_stats._rbf_psi2_sum_chunked(q["kern"], Zp, mu, s, 128)
+        ep = svi.svi_bound(cfg.kernel, q["kern"], Zp, q["log_noise"], q["qu"], PsiStats(psi0, psi1, p2), y)
+        (gz,) = torch.autograd.grad(ep, Zp)
+        return ep.detach(), gz, p2.detach()
+
+    e64, gz64, psi2_64 = plain_bound(torch.float64)
+    _, gz32, _ = plain_bound(torch.float32)
+    ok_k1, err_k1, worst_k1 = _within(psi2_k, psi2_64, rel=2e-4, rel_max=2e-5)
+    # the gradient of Z through the Psi2 sum at the bound's cotangent G:
+    # K2 (float32) against the plain float64 VJP of the same sum
+    q64 = _cast(params, torch.float64)
+    Zk = params["Z"].clone().requires_grad_(True)
+    (vjp_k,) = torch.autograd.grad(psi2.rbf_psi2_sum(params["kern"], Zk, X, Xv), Zk, grad_outputs=G)
+    Z64 = q64["Z"].clone().requires_grad_(True)
+    (vjp_64,) = torch.autograd.grad(
+        psi_stats._rbf_psi2_sum_chunked(q64["kern"], Z64, X.double(), Xv.double(), 128), Z64,
+        grad_outputs=G.double())
+    ok_k2, err_k2, worst_k2 = _within(vjp_k, vjp_64)
+    rel_e = abs(float(e) - float(e64)) / abs(float(e64))
+    err_total = float((Z.grad.double() - gz64).abs().max())
+    err_total32 = float((gz32.double() - gz64).abs().max())
+    row = {"T": T, "M": M, "Q": Q, "launches": counts, "elbo": float(e), "elbo_plain_f64": float(e64),
+           "elbo_rel_err": rel_e, "psi2_k1": {"max_abs_err": err_k1, "worst_err_over_tol": worst_k1},
+           "grad_Z_through_k2": {"max_abs_err": err_k2, "worst_err_over_tol": worst_k2,
+                                 "max_abs": float(vjp_64.abs().max())},
+           "grad_Z_total": {"max_abs": float(gz64.abs().max()), "max_abs_err_k1k2_f32": err_total,
+                            "max_abs_err_plain_f32": err_total32}}
+    print("svgp uncertain elbo", json.dumps(row))
+    check(bool(torch.isfinite(e)) and rel_e <= 2e-4, f"svgp.elbo through K1 {float(e)} vs plain {float(e64)}")
+    check(ok_k1, f"svgp.elbo's Psi2 from K1 disagrees with the plain version: worst err/tol {worst_k1}")
+    check(ok_k2, f"svgp.elbo's grad Z through K2 disagrees with the plain VJP: worst err/tol {worst_k2}")
+    check(bool(torch.isfinite(Z.grad).all()), "svgp.elbo's grad Z is not finite")
+    return counts
+
+
 def ptxas_report(log):
     """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
     instance, from the ptxas report nvcc wrote beside the library."""
@@ -698,11 +895,18 @@ def main():
     check(not any(tf32.values()), f"TF32 is on: {tf32}")
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
 
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s wall")
+        return out
+
     # phase 2
     t0 = time.perf_counter()
     libs = psi2.build()
     build_s = time.perf_counter() - t0
     print(f"kernel build (K1 and K2 at once): {build_s:.1f} s")
+    print(f"phase 2: {build_s:.1f} s wall")
     ptxas = {}
     for name, so in libs.items():
         print(f"  {name}: {os.path.relpath(so, root)}")
@@ -710,15 +914,17 @@ def main():
         ptxas[name] = ptxas_report(log.read_text()) if log.exists() else "not reported"
         print(f"  ptxas {name} (Q width: registers, spill bytes):", json.dumps(ptxas[name]))
 
-    k1_rows = phase_k1(psi2)  # phase 3
-    k2_rows = phase_k2(psi2)
-    phase_vjp(psi2, psi_stats)
-    serving = phase_serving(psi2, psi_stats)  # phase 4
-    phase_f32_lane(psi2)
-    training = phase_training(psi2, psi_stats)  # phase 5
-    phase_f32_lane_trained(psi2)
-    phase_golden()  # phase 6
-    config2 = phase_configs_2_3(psi2, psi_stats)  # phase 7
+    k1_rows = timed("3 (K1)", phase_k1, psi2)
+    k2_rows = timed("3 (K2)", phase_k2, psi2)
+    timed("3 (VJP)", phase_vjp, psi2, psi_stats)
+    serving = timed("4", phase_serving, psi2, psi_stats)
+    timed("4 (f32 lane)", phase_f32_lane, psi2)
+    training = timed("5", phase_training, psi2, psi_stats)
+    timed("5 (f32 lane)", phase_f32_lane_trained, psi2)
+    timed("6", phase_golden)
+    config2 = timed("7", phase_configs_2_3, psi2, psi_stats)
+    config4 = timed("8", phase_config4, psi2, psi_stats, card)
+    uncertain = timed("8 (svgp uncertain)", phase_svgp_uncertain, psi2, psi_stats)
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
@@ -739,10 +945,12 @@ def main():
     print(json.dumps({"kernels": [
         row("psi2_fwd", "rgp_tpu_torch/csrc/psi2_fwd.cu", "rgp_tpu/ops/pallas/psi2.py:147",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
-            {"training": training["k1"], "serving": serving, "config2_training": config2["k1"]}, k1_rows),
+            {"training": training["k1"], "serving": serving, "config2_training": config2["k1"],
+             "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"]}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
-            {"training": training["k2"], "serving": 0, "config2_training": config2["k2"]}, k2_rows),
+            {"training": training["k2"], "serving": 0, "config2_training": config2["k2"],
+             "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"]}, k2_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

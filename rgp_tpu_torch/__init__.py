@@ -20,12 +20,17 @@ Public surface, for what is ported:
     params = rgp.init(cfg, Y, U)
     fit    = rgp.fit(lambda p: -rgp.elbo(cfg, p, Y, U), params, iters=10_000)
     sim    = rgp.freerun(cfg, fit.params, Y, U, U_test)      # means + vars
+
+Config 4 (minibatch SVI with natural-gradient q(u)): ``rgp.svgp`` with
+``rgp_tpu_torch.train.fit_minibatch(..., natgrad_block="qu")``, or the
+harness, ``python -m rgp_tpu_torch.bench --task long_corpus --method
+svgp_natgrad``.
 """
 
 from . import kernels, linalg, params
 from .data import datasets
 from .data.windows import Standardizer, narx_design
-from .models import gp, gp_narx, sparse_gp
+from .models import gp, gp_narx, sparse_gp, svgp
 from .models.rgp import RGPConfig, elbo, freerun
 from .models.rgp import deep_rgp_config as DeepRGP
 from .models.rgp import init_params as init
@@ -52,4 +57,5 @@ __all__ = [
     "gp",
     "sparse_gp",
     "gp_narx",
+    "svgp",
 ]

@@ -1,23 +1,30 @@
 """Benchmark harness: task x method registries and free-simulation scoring
-(port of ``rgp_tpu/bench/harness.py``, configs 1-3).
+(port of ``rgp_tpu/bench/harness.py``, configs 2-4).
 
 Every method trains on the task's train split and is scored by closed-loop
 free-simulation RMSE on the held-out split in the original data scale.
 
     python -m rgp_tpu_torch.bench --task drives --method rgp2_mlp --iters 300
     python -m rgp_tpu_torch.bench --task actuator --method gp_narx --iters 1000 --num-inducing 50
+    python -m rgp_tpu_torch.bench --task long_corpus --method svgp_natgrad --iters 1000 --batch-size 512
+
+Config 4's routes on ``long_corpus`` (a NARX design of 12278 x 15 at the
+defaults): ``svgp_natgrad`` (minibatch SVI, Adam plus natural-gradient q(u)),
+``svgp_natgrad_collapsed`` (the same fit, scored through the exact collapsed
+posterior), ``gp_narx_minibatch`` and ``gp_narx_minibatch_ema`` (the
+collapsed bound from T/B-scaled batch statistics, raw or EMA-smoothed) and
+``gp_narx_collapsed`` (the full-corpus collapsed bound every step).
 
 The last line of standard output is one JSON object with the JAX harness's
 keys; ``backend`` is the card's name. It runs on the card: ``run`` takes
-``device="cpu"`` for the tests, and the command line has no CPU mode. The
-config-4 methods (``svgp_natgrad*``, ``gp_narx_minibatch*``,
-``gp_narx_collapsed``) are not ported yet and raise.
+``device="cpu"`` for the tests, and the command line has no CPU mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import time
 from pathlib import Path
@@ -30,7 +37,11 @@ from .. import train
 from ..data import datasets
 from ..data.windows import Standardizer
 from ..kernels import RBF, Matern52
-from ..models import gp_narx, rgp
+from ..data.windows import narx_design
+from ..inference.collapsed_vi import collapsed_bound, collapsed_bound_from_suffstats, whitening_basis
+from ..linalg import hdot
+from ..models import gp_narx, rgp, sparse_gp, svgp
+from ..ops.psi_stats import psi01, psi_statistics
 from ..params import positive
 
 __all__ = ["TASKS", "METHODS", "MethodFit", "run", "main"]
@@ -45,12 +56,6 @@ TASKS: Dict[str, Callable] = {
     "tanks": datasets.tanks,
     "long_corpus": datasets.long_corpus,
 }
-
-# config 4's routes of the JAX harness, which need svgp, svi, natgrad and the
-# minibatch trainers of ROADMAP.md Queue 1 item 12
-NOT_PORTED = ("gp_narx_collapsed", "gp_narx_minibatch", "gp_narx_minibatch_ema",
-              "svgp_natgrad", "svgp_natgrad_collapsed")
-
 
 @dataclasses.dataclass
 class _Prepared:
@@ -71,11 +76,14 @@ def _prepare(task: str, dtype=torch.float32, device=None, **task_kw) -> _Prepare
 
 
 class MethodFit(NamedTuple):
-    """What a method returns: the Adam result, the free simulation's means and
+    """What a method returns: the training result, the free simulation's means and
     variances over the test split (standardized scale), ``val_fn()`` (a cheap
     closed-loop rollout RMSE over the last ``_val_horizon`` steps of the
     training split: the restart score of ``run(select="rollout")``), the
-    model's config and the loss it minimized."""
+    model's config, the loss it minimized (``loss(params)``, ``loss(params,
+    aux)`` for a full-data route with a whitening ``aux``, ``loss(params,
+    batch)`` for a minibatch route), and ``freerun()``, which reruns the free
+    simulation that gave the means and variances."""
 
     res: train.FitResult
     means: torch.Tensor
@@ -83,6 +91,12 @@ class MethodFit(NamedTuple):
     val_fn: Callable[[], float]
     cfg: Any
     loss: Callable
+    freerun: Callable[[], tuple]
+
+
+def _method_fit(res, freerun, val_fn, cfg, loss) -> MethodFit:
+    m, v = freerun()
+    return MethodFit(res, m, v, val_fn, cfg, loss, freerun)
 
 
 def _val_horizon(T: int) -> int:
@@ -115,8 +129,10 @@ def _method_gp_narx(prep: _Prepared, iters: int, lr: float, seed: int, M: int,
         return f
 
     res = _adam(loss, params, iters, lr)
-    with torch.no_grad():
-        m, v = gp_narx.freerun(cfg, res.params, prep.Y, prep.U, prep.U_test,
+
+    @torch.no_grad()
+    def freerun():
+        return gp_narx.freerun(cfg, res.params, prep.Y, prep.U, prep.U_test,
                                y_init=prep.Y[-10:], moment_match=moment_match)
 
     @torch.no_grad()
@@ -129,7 +145,7 @@ def _method_gp_narx(prep: _Prepared, iters: int, lr: float, seed: int, M: int,
         )
         return _std_rmse(mv, prep.Y[T - K:])
 
-    return MethodFit(res, m, v, val_fn, cfg, loss)
+    return _method_fit(res, freerun, val_fn, cfg, loss)
 
 
 def _truncate_rgp_params(params, K: int):
@@ -155,8 +171,10 @@ def _method_rgp(prep, iters, lr, seed, M, wins, back_cstr=False, mlp=()):
         return -rgp.elbo(cfg, p, prep.Y, prep.U)
 
     res = _adam(loss, params, iters, lr)
-    with torch.no_grad():
-        m, v = rgp.freerun(cfg, res.params, prep.Y, prep.U, prep.U_test)
+
+    @torch.no_grad()
+    def freerun():
+        return rgp.freerun(cfg, res.params, prep.Y, prep.U, prep.U_test)
 
     @torch.no_grad()
     def val_fn():
@@ -168,12 +186,223 @@ def _method_rgp(prep, iters, lr, seed, M, wins, back_cstr=False, mlp=()):
         mv, _ = rgp.freerun(cfg, pv, prep.Y[: T - K], prep.U[: T - K], prep.U[T - K:])
         return _std_rmse(mv, prep.Y[T - K:])
 
-    return MethodFit(res, m, v, val_fn, cfg, loss)
+    return _method_fit(res, freerun, val_fn, cfg, loss)
+
+
+def _floored(log_noise, noise_floor):
+    """The raw log-noise whose noise is ``positive(log_noise) + noise_floor``."""
+    return torch.log(torch.expm1(positive(log_noise) + noise_floor))
+
+
+# config 4's NARX windows (rgp_tpu/bench/harness.py's y_win, u_win)
+_C4_Y_WIN, _C4_U_WIN = 10, 5
+
+
+def _narx_scored(res, ncfg, p, prep: _Prepared, cfg, loss) -> MethodFit:
+    """A config-4 fit scored through ``gp_narx.freerun`` of ``ncfg`` at ``p``
+    (the exact full-data collapsed posterior), on the test split and, for
+    ``val_fn``, on the training tail."""
+
+    @torch.no_grad()
+    def freerun():
+        return gp_narx.freerun(ncfg, p, prep.Y, prep.U, prep.U_test, y_init=prep.Y[-_C4_Y_WIN:])
+
+    @torch.no_grad()
+    def val_fn():
+        T = prep.Y.shape[0]
+        K = _val_horizon(T)
+        mv, _ = gp_narx.freerun(ncfg, p, prep.Y[: T - K], prep.U[: T - K], prep.U[T - K:],
+                                y_init=prep.Y[T - K - _C4_Y_WIN: T - K])
+        return _std_rmse(mv, prep.Y[T - K:])
+
+    return _method_fit(res, freerun, val_fn, cfg, loss)
+
+
+def _c4_design(prep: _Prepared):
+    return narx_design(prep.Y, prep.U, _C4_Y_WIN, _C4_U_WIN)
+
+
+def _c4_schedule(value: float, iters: int, alpha: float):
+    """Cosine decay with its horizon pinned at 10k steps whatever the budget:
+    stretching it with ``iters`` keeps both rates high for longer, and the
+    JAX package measured the run destabilizing at 30k."""
+    return train.cosine_decay_schedule(value, min(iters, 10000), alpha)
+
+
+def _method_svgp_natgrad(prep: _Prepared, iters: int, lr: float, seed: int, M: int,
+                         batch_size: int = 512, noise_floor: float = 1e-4,
+                         collapse_eval: bool = False, indices=None):
+    """Config 4: minibatch SVI on the NARX windows, Adam (clipped at global
+    norm 10, cosine to 1%) on the hyperparameters and Z, a natural-gradient
+    step on q(u) after each (cosine 0.1 -> 0.005); the loss and the scored
+    model carry the explicit noise floor. ``collapse_eval`` scores the learned
+    (kern, Z, noise) through the exact full-data collapsed posterior instead
+    of the learned q(u). ``indices`` replays given batch draws."""
+    X, Yt = _c4_design(prep)
+    cfg = svgp.SVGPConfig(RBF(input_dim=X.shape[1]), num_inducing=M, output_dim=Yt.shape[1])
+    params = svgp.init_params(cfg, X, noise=0.1, seed=seed, dtype=X.dtype, device=X.device)
+    T_total = X.shape[0]
+    bs = min(batch_size, T_total)
+
+    def floored(p):
+        return {**p, "log_noise": _floored(p["log_noise"], noise_floor)}
+
+    def loss(p, batch):
+        return -svgp.elbo(cfg, floored(p), batch["X"], batch["Y"], T_total=T_total)
+
+    res = train.fit_minibatch(
+        loss, params, {"X": X, "Y": Yt}, iters=iters, batch_size=bs, seed=seed, indices=indices,
+        learning_rate=_c4_schedule(lr, iters, 0.01), clip_norm=10.0,
+        natgrad_block="qu", natgrad_lr=_c4_schedule(0.1, iters, 0.05),
+    )
+    p = floored(res.params)  # the freerun sees the model the loss trained
+    if collapse_eval:
+        ncfg = gp_narx.NARXConfig(kernel=cfg.kernel, num_inducing=M, y_win=_C4_Y_WIN,
+                                  u_win=_C4_U_WIN, noise_floor=0.0)
+        pc = {"kern": p["kern"], "Z": p["Z"], "log_noise": p["log_noise"]}
+        return _narx_scored(res, ncfg, pc, prep, cfg, loss)
+
+    @torch.no_grad()
+    def freerun():
+        return svgp.freerun_narx(cfg, p, _C4_Y_WIN, _C4_U_WIN, prep.Y, prep.U, prep.U_test)
+
+    @torch.no_grad()
+    def val_fn():
+        T = prep.Y.shape[0]
+        K = _val_horizon(T)
+        mv, _ = svgp.freerun_narx(cfg, p, _C4_Y_WIN, _C4_U_WIN, prep.Y[: T - K], prep.U[: T - K],
+                                  prep.U[T - K:])
+        return _std_rmse(mv, prep.Y[T - K:])
+
+    return _method_fit(res, freerun, val_fn, cfg, loss)
+
+
+def _method_narx_collapsed_full(prep: _Prepared, iters: int, lr: float, seed: int, M: int,
+                                noise_floor: float = 1e-4):
+    """Config 4, exact route: the full-corpus collapsed GP-NARX bound every
+    step (certain inputs: Psi2 from the factor Psi1 = K), the explicit noise
+    floor in the loss and the scored model, the whitening refreshed every 100
+    steps."""
+    X, Yt = _c4_design(prep)
+    # noise_floor=0 on the config: the floor is explicit here (in the loss and
+    # the scored params); the config's own would double it
+    cfg = gp_narx.NARXConfig(kernel=RBF(input_dim=X.shape[1]), num_inducing=M, y_win=_C4_Y_WIN,
+                             u_win=_C4_U_WIN, noise_floor=0.0)
+    params = sparse_gp.init_params(cfg.sparse, X, noise=0.1, seed=seed, dtype=X.dtype, device=X.device)
+    kern = cfg.kernel
+
+    def loss(p, wh):
+        stats = psi_statistics(kern, p["kern"], p["Z"], X, None)
+        return -collapsed_bound(kern, p["kern"], p["Z"], _floored(p["log_noise"], noise_floor), stats, Yt,
+                                certain=True, W=wh)
+
+    res = train.fit_adam(loss, params, iters=iters,
+                         learning_rate=train.cosine_decay_schedule(lr, iters, 0.01),
+                         aux_fn=lambda p: whitening_basis(kern.K(p["kern"], p["Z"])), aux_every=100)
+    p = {**res.params, "log_noise": _floored(res.params["log_noise"], noise_floor)}
+    return _narx_scored(res, cfg, p, prep, cfg, loss)
+
+
+def _suffstats(kern, q, Xb, Yb, w):
+    """The T/B-scaled additive statistics of a batch (certain inputs:
+    Psi2 = Psi1^T Psi1)."""
+    psi0_b, psi1_b = psi01(kern, q["kern"], q["Z"], Xb, None)
+    return {"psi0": w * psi0_b.sum(), "p1y": w * hdot(psi1_b.T, Yb),
+            "psi2": w * hdot(psi1_b.T, psi1_b), "ysq": w * (Yb ** 2).sum()}
+
+
+def _fit_ema(kern, params, X, Yt, loss_at, iters, bs, seed, indices, learning_rate, ema):
+    """The EMA route's own loop (the JAX harness's): each step assembles the
+    bound at an exponential moving average of the scaled batch statistics,
+    started from the exact full-data statistics at the initial parameters,
+    with the gradient flowing through the current batch at full weight
+    (straight-through: ``used = b + (new_es - b).detach()``). Clipped cosine
+    Adam as the other minibatch routes."""
+    T_total = X.shape[0]
+    w = T_total / bs
+    leaves = [x.detach().clone().requires_grad_(True) for _, x in train.leaves_with_paths(params)]
+    q = train.with_leaves(params, leaves)
+    opt = train.OptaxAdam(leaves, learning_rate, clip_norm=10.0)
+    indices = train.batch_indices(X, iters, bs, seed=seed, indices=indices)
+    with torch.no_grad():
+        es = _suffstats(kern, params, X, Yt, 1.0)
+    losses = torch.empty(iters, dtype=X.dtype, device=X.device)
+    keys = sorted(es)
+    for i in range(iters):
+        idx = indices[i]
+        b = _suffstats(kern, q, X[idx], Yt[idx], w)
+        new_es = {k: ema * es[k] + (1.0 - ema) * b[k].detach() for k in keys}
+        used = {k: b[k] + (new_es[k] - b[k]).detach() for k in keys}
+        f = loss_at(q, used)
+        grads = torch.autograd.grad(f, leaves)
+        losses[i] = f.detach()
+        opt.step(grads, i)
+        es = new_es
+    return train.FitResult(params=train.with_leaves(params, [x.detach() for x in leaves]), losses=losses)
+
+
+def _method_narx_minibatch(prep: _Prepared, iters: int, lr: float, seed: int, M: int,
+                           batch_size: int = 512, noise_floor: float = 1e-4,
+                           ema: float | None = None, indices=None):
+    """Config 4, collapsed route: the collapsed GP-NARX bound assembled from
+    the T/B-scaled statistics of each batch (Psi1's factor sqrt(w) Psi1 keeps
+    the whitened Psi2 PSD), clipped cosine Adam, the explicit noise floor in
+    the loss and the scored model. With ``ema``, the statistics are smoothed
+    (:func:`_fit_ema`). The freerun goes through the exact full-data collapsed
+    posterior at the learned hyperparameters. ``indices`` replays given batch
+    draws."""
+    X, Yt = _c4_design(prep)
+    cfg = gp_narx.NARXConfig(kernel=RBF(input_dim=X.shape[1]), num_inducing=M, y_win=_C4_Y_WIN,
+                             u_win=_C4_U_WIN, noise_floor=0.0)
+    params = sparse_gp.init_params(cfg.sparse, X, noise=0.1, seed=seed, dtype=X.dtype, device=X.device)
+    T_total, D = Yt.shape
+    bs = min(batch_size, T_total)
+    w = T_total / bs
+    kern = cfg.kernel
+    schedule = _c4_schedule(lr, iters, 0.01)
+
+    def loss(p, batch):
+        psi0_b, psi1_b = psi01(kern, p["kern"], p["Z"], batch["X"], None)
+        return -collapsed_bound_from_suffstats(
+            kern, p["kern"], p["Z"], _floored(p["log_noise"], noise_floor),
+            w * psi0_b.sum(), w * hdot(psi1_b.T, batch["Y"]), None, w * (batch["Y"] ** 2).sum(),
+            T_total, D, psi1_factor=math.sqrt(w) * psi1_b,
+        )
+
+    if ema is None:
+        res = train.fit_minibatch(loss, params, {"X": X, "Y": Yt}, iters=iters, batch_size=bs, seed=seed,
+                                  indices=indices, learning_rate=schedule, clip_norm=10.0)
+    else:
+        def loss_at(q, st):
+            return -collapsed_bound_from_suffstats(
+                kern, q["kern"], q["Z"], _floored(q["log_noise"], noise_floor),
+                st["psi0"], st["p1y"], st["psi2"], st["ysq"], T_total, D,
+            )
+
+        res = _fit_ema(kern, params, X, Yt, loss_at, iters, bs, seed, indices, schedule, ema)
+    p = {**res.params, "log_noise": _floored(res.params["log_noise"], noise_floor)}
+    return _narx_scored(res, cfg, p, prep, cfg, loss)
 
 
 METHODS: Dict[str, Callable] = {
-    # **kw carries optional per-run knobs (ls_prior_std, noise_floor for
-    # gp_narx), forwarded from run()'s method_kw
+    # **kw carries optional per-run knobs (batch_size and indices for the
+    # config-4 minibatch routes, ls_prior_std and noise_floor for gp_narx),
+    # forwarded from run()'s method_kw
+    "svgp_natgrad": lambda prep, iters, lr, seed, M, **kw: _method_svgp_natgrad(prep, iters, lr, seed, M, **kw),
+    # the same fit, scored through the exact full-data collapsed posterior
+    "svgp_natgrad_collapsed": lambda prep, iters, lr, seed, M, **kw: _method_svgp_natgrad(
+        prep, iters, lr, seed, M, collapse_eval=True, **kw
+    ),
+    "gp_narx_minibatch": lambda prep, iters, lr, seed, M, **kw: _method_narx_minibatch(
+        prep, iters, lr, seed, M, **kw
+    ),
+    # the minibatch collapsed bound at EMA-smoothed statistics
+    "gp_narx_minibatch_ema": lambda prep, iters, lr, seed, M, **kw: _method_narx_minibatch(
+        prep, iters, lr, seed, M, ema=kw.pop("ema", 0.99), **kw
+    ),
+    "gp_narx_collapsed": lambda prep, iters, lr, seed, M, **kw: _method_narx_collapsed_full(
+        prep, iters, lr, seed, M
+    ),
     "gp_narx": lambda prep, iters, lr, seed, M, **kw: _method_gp_narx(prep, iters, lr, seed, M, **kw),
     "rgp1": lambda prep, iters, lr, seed, M, **kw: _method_rgp(prep, iters, lr, seed, M, [0, 10]),
     "rgp2": lambda prep, iters, lr, seed, M, **kw: _method_rgp(prep, iters, lr, seed, M, [0, 6, 6]),
@@ -236,10 +465,6 @@ def run(
     run. ``device=None`` means the card. Returns the JSON-ready record, or
     with ``return_fit`` the pair (record, the kept restart's
     :class:`MethodFit`)."""
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is a config-4 route, not ported yet (ROADMAP.md Queue 1 item 12)"
-        )
     if method not in METHODS:
         raise KeyError(f"unknown method {method!r}; known: {sorted(METHODS)}")
     if select not in ("elbo", "rollout"):
@@ -282,6 +507,7 @@ def run(
         reasons.append("noise_collapsed_to_floor")
 
     dev = prep.Y.device
+    recorded_kw = {k: v for k, v in method_kw.items() if k != "indices"}
     record = {
         "task": task,
         "method": method,
@@ -302,7 +528,8 @@ def run(
         "final_noise_min": None if noise_min is None else float(f"{noise_min:.3g}"),
         "degenerate": bool(reasons),
         "degenerate_reasons": reasons,
-        **({"method_kw": method_kw} if method_kw else {}),
+        # replayed batch indices (a tensor, for the tests) stay out of the record
+        **({"method_kw": recorded_kw} if recorded_kw else {}),
     }
     return (record, fit) if return_fit else record
 
@@ -312,7 +539,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="actuator", choices=sorted(TASKS))
-    ap.add_argument("--method", default="rgp1", choices=sorted(METHODS) + sorted(NOT_PORTED))
+    ap.add_argument("--method", default="rgp1", choices=sorted(METHODS))
     ap.add_argument("--iters", type=int, default=10000)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--seed", type=int, default=0)
@@ -323,12 +550,16 @@ def main(argv=None):
     ap.add_argument("--select", default="elbo", choices=("elbo", "rollout"),
                     help="restart selection: final training bound, or "
                          "closed-loop rollout RMSE on the training tail")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="minibatch size for the config-4 methods")
     ap.add_argument("--ls-prior-std", type=float, default=None,
                     help="mild N(0,std^2) prior on log-lengthscales (gp_narx)")
     ap.add_argument("--noise-floor", type=float, default=None,
                     help="noise-variance floor override (gp_narx)")
     args = ap.parse_args(argv)
     kw = {}
+    if args.batch_size is not None:
+        kw["batch_size"] = args.batch_size
     if args.ls_prior_std is not None:
         kw["ls_prior_std"] = args.ls_prior_std
     if args.noise_floor is not None:

@@ -13,10 +13,13 @@ import torch
 
 __all__ = [
     "hdot",
+    "tdot",
     "jitchol",
     "jitchol_with_jitter",
     "solve_triangular",
     "cho_solve",
+    "backsub_both_sides",
+    "pdinv",
     "log_det_from_chol",
 ]
 
@@ -27,6 +30,11 @@ torch.backends.cudnn.allow_tf32 = False
 def hdot(a, b):
     """Full-precision matmul (TF32 is off, see the module note)."""
     return torch.matmul(a, b)
+
+
+def tdot(a):
+    """A @ A^T (reference ``tdot``, i.e. dsyrk)."""
+    return torch.matmul(a, a.mT)
 
 
 def _add_jitter(A, jitter):
@@ -87,6 +95,26 @@ def cho_solve(L, B):
     """Solve A X = B given L = chol(A)."""
     y = solve_triangular(L, B, lower=True, trans=False)
     return solve_triangular(L, y, lower=True, trans=True)
+
+
+def backsub_both_sides(L, X, transpose: str = "left"):
+    """Congruence by L^{-1} (reference ``backsub_both_sides``):
+    ``transpose='left'`` gives L^{-T} X L^{-1}, ``'right'`` L^{-1} X L^{-T}."""
+    if transpose not in ("left", "right"):
+        raise ValueError(f"transpose must be 'left' or 'right', got {transpose!r}")
+    trans = transpose == "left"
+    tmp = solve_triangular(L, X, lower=True, trans=trans)
+    return solve_triangular(L, tmp.mT, lower=True, trans=trans).mT
+
+
+def pdinv(A, jitter0: float = 1e-6):
+    """Inverse of a PD matrix through :func:`jitchol` (reference ``pdinv``).
+    Returns (Ainv, L, half_logdet)."""
+    L = jitchol(A, jitter0=jitter0)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    Ainv = cho_solve(L, eye)
+    half_logdet = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    return Ainv, L, half_logdet
 
 
 def log_det_from_chol(L):

@@ -2,13 +2,23 @@
 float64: the same task, method, budget and seed in both packages. The inits
 are numpy in both, so the runs start from the same point and their
 elbo_first, elbo_last and freerun_rmse agree at rtol 1e-6; the JSON keys are
-the same. The config-4 routes are not ported and raise.
+the same.
+
+Config 4's five routes run on long_corpus cut to T=2048 (train 1536, test 512;
+the cut keeps the 512-step freeruns cheap) at M=20 and batch 64, with the
+JAX draws (``jax.random.split``/``randint`` from ``PRNGKey(seed)``) replayed
+into the port's ``indices``. ``gp_narx_collapsed`` runs 100 steps, a whole
+whitening chunk: at 3 the JAX ``fit_adam`` would apply 100 updates and report
+3 losses (ROADMAP.md Queue 3).
 
 The JAX harness's methods call ``init_params`` without a dtype, i.e. in
-float32; the fixture ``f64`` hands them Y's dtype, so its float64 runs are
-float64 throughout, as the port's are.
+float32; the fixture ``f64`` hands them their data's dtype, so its float64
+runs are float64 throughout, as the port's are.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +27,8 @@ import torch
 from rgp_tpu.bench import harness as jh
 from rgp_tpu.models import gp_narx as jnarx
 from rgp_tpu.models import rgp as jr
+from rgp_tpu.models import sparse_gp as jsgp
+from rgp_tpu.models import svgp as jsvgp
 from rgp_tpu_torch.bench import harness as th
 
 RUNS = {
@@ -27,7 +39,7 @@ RUNS = {
 
 @pytest.fixture
 def f64(monkeypatch):
-    for mod in (jr, jnarx):
+    for mod in (jr, jnarx, jsgp, jsvgp):
         monkeypatch.setattr(mod, "init_params",
                             lambda cfg, Y, *a, _init=mod.init_params, **kw: _init(cfg, Y, *a, **{**kw, "dtype": Y.dtype}))
 
@@ -58,15 +70,32 @@ def test_restarts_select_the_same_seed_as_jax(f64):
     np.testing.assert_allclose(ours["freerun_rmse"], ref["freerun_rmse"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("method", sorted(th.NOT_PORTED))
-def test_config4_methods_raise(method):
-    assert method in jh.METHODS
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        th.run("actuator", method, iters=1, device="cpu")
+CONFIG4 = {"svgp_natgrad": 3, "svgp_natgrad_collapsed": 3, "gp_narx_minibatch": 3, "gp_narx_minibatch_ema": 3,
+           "gp_narx_collapsed": 100}
+
+
+@pytest.mark.parametrize("method", sorted(CONFIG4))
+def test_config4_route_matches_jax(method, f64, monkeypatch):
+    for mod in (jh, th):
+        monkeypatch.setitem(mod.TASKS, "long_corpus", functools.partial(mod.TASKS["long_corpus"], T=2048))
+    iters, bs, seed = CONFIG4[method], 64, 0
+    n = 2048 * 3 // 4 - 10  # the NARX design's rows (y_win 10)
+    idx = np.stack([np.asarray(jax.random.randint(k, (bs,), 0, n))
+                    for k in jax.random.split(jax.random.PRNGKey(seed), iters)])
+    ref = jh.run("long_corpus", method, iters=iters, num_inducing=20, dtype=jnp.float64, batch_size=bs)
+    ours = th.run("long_corpus", method, iters=iters, num_inducing=20, dtype=torch.float64, device="cpu",
+                  batch_size=bs, indices=torch.tensor(idx))
+    assert set(ours) == set(ref) and ours["method_kw"] == ref["method_kw"] == {"batch_size": bs}
+    for key in ("elbo_first", "elbo_last", "freerun_rmse"):
+        np.testing.assert_allclose(ours[key], ref[key], rtol=1e-6, err_msg=key)
+    assert ours["zero_predictor_rmse"] == ref["zero_predictor_rmse"]
+    assert ours["degenerate_reasons"] == ref["degenerate_reasons"]
+    assert ours["final_noise_min"] == ref["final_noise_min"]
 
 
 def test_methods_are_the_jax_harness_minus_config4():
-    assert set(th.METHODS) == set(jh.METHODS) - set(th.NOT_PORTED)
+    """Since config 4's routes came, the port's methods are all the JAX harness's."""
+    assert set(th.METHODS) == set(jh.METHODS)
     assert set(th.TASKS) == set(jh.TASKS)
     with pytest.raises(KeyError):
         th.run("actuator", "no_such_method", device="cpu")

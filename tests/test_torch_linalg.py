@@ -106,3 +106,28 @@ def test_cho_solve_and_logdet_match_jax(rng):
 def test_tf32_is_pinned_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_log_jacobian_softplus_matches_jax(rng):
+    x = 10.0 * rng.standard_normal((7, 3))
+    np.testing.assert_allclose(float(tp.log_jacobian_softplus(torch.tensor(x))),
+                               float(jp.log_jacobian_softplus(jnp.asarray(x))), rtol=1e-13)
+
+
+def test_tdot_and_pdinv_match_jax(rng):
+    A = rng.standard_normal((2, 6, 4))
+    np.testing.assert_allclose(tl.tdot(torch.tensor(A)).numpy(), np.asarray(jl.tdot(jnp.asarray(A))), rtol=1e-13)
+    S = np.stack([_spd_with_min_eig(rng, 6, 1e-3) for _ in range(2)])
+    for a, b in zip(tl.pdinv(torch.tensor(S)), jl.pdinv(jnp.asarray(S))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("transpose", ["left", "right"])
+def test_backsub_both_sides_matches_jax(rng, transpose):
+    L = np.linalg.cholesky(_spd_with_min_eig(rng, 6, 0.1))
+    X = rng.standard_normal((6, 6))
+    ours = tl.backsub_both_sides(torch.tensor(L), torch.tensor(X), transpose=transpose).numpy()
+    ref = np.asarray(jl.backsub_both_sides(jnp.asarray(L), jnp.asarray(X), transpose=transpose))
+    np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-13)
+    with pytest.raises(ValueError):
+        tl.backsub_both_sides(torch.tensor(L), torch.tensor(X), transpose="both")

@@ -178,3 +178,215 @@ def test_fit_adam_with_whitening_refresh_matches_jax(carried):
     np.testing.assert_allclose(ours.losses.numpy(), np.asarray(ref.losses), rtol=1e-8)
     for a, b in zip(_leaves(ours.params), _leaves(ref.params)):
         np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-10)
+
+
+# --------------------------------------------------------------- config 4's training loops
+
+from jax.flatten_util import ravel_pytree  # noqa: E402
+
+import rgp_tpu.kernels as jk  # noqa: E402
+from rgp_tpu.data import windows as jw  # noqa: E402
+from rgp_tpu.models import sparse_gp as jsgp  # noqa: E402
+from rgp_tpu.models import svgp as jsvgp  # noqa: E402
+import rgp_tpu_torch.kernels as tk  # noqa: E402
+from rgp_tpu_torch import params as tparams  # noqa: E402
+from rgp_tpu_torch.models import sparse_gp as tsgp  # noqa: E402
+from rgp_tpu_torch.models import svgp as tsvgp  # noqa: E402
+
+
+def test_ravel_matches_ravel_pytree():
+    """Order (dict keys sorted, lists in order, 0-d leaves as one entry),
+    values, and a round trip through ``unravel`` that keeps gradients."""
+    rng = np.random.default_rng(3)
+    tree = {"z": rng.standard_normal((2, 3)), "a": [rng.standard_normal(4), {"y": np.float64(0.5),
+                                                                             "b": rng.standard_normal((1, 2))}]}
+    ref, junravel = ravel_pytree(jax.tree.map(jnp.asarray, tree))
+    tp = params_from_jax(tree, dtype=torch.float64, device="cpu")
+    flat, unravel = tparams.ravel(tp)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(ref))
+    v = torch.arange(flat.numel(), dtype=torch.float64, requires_grad=True)
+    back = unravel(v)
+    for (path, a), b in zip(train.leaves_with_paths(back), jax.tree.leaves(junravel(jnp.arange(flat.numel(),
+                                                                                                dtype=jnp.float64)))):
+        np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b), err_msg=path)
+    assert back["a"][1]["y"].shape == () and isinstance(back["a"], list)
+    (sum((x * x).sum() for _, x in train.leaves_with_paths(back))).backward()
+    np.testing.assert_array_equal(v.grad.numpy(), 2.0 * v.detach().numpy())
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    """long_corpus(T=800, seed=1)'s NARX design (y_win=3, u_win=2), as in
+    tests/test_minibatch_training.py."""
+    d = jd.long_corpus(T=800, seed=1)
+    sy, su = JStandardizer.fit(d.y_train), JStandardizer.fit(d.u_train)
+    X, Y = jw.narx_design(sy.transform(d.y_train), su.transform(d.u_train), 3, 2)
+    return np.asarray(X), np.asarray(Y)
+
+
+def _jax_indices(key, iters, batch_size, n):
+    """fit_minibatch's draws: one ``randint`` per ``split`` key."""
+    return np.stack([np.asarray(jax.random.randint(k, (batch_size,), 0, n))
+                     for k in jax.random.split(key, iters)])
+
+
+def _close(ours, ref, rtol):
+    for (path, a), b in zip(train.leaves_with_paths(ours), jax.tree.leaves(ref)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=rtol, atol=rtol * np.abs(b).max(), err_msg=path)
+
+
+def test_fit_minibatch_natgrad_matches_jax(corpus):
+    """20 steps: q(u) by natural gradients on a cosine schedule, the rest by
+    clipped cosine Adam (config 4's optimizer), the JAX draws replayed;
+    losses and parameters at rtol 1e-8."""
+    X, Y = corpus
+    T = X.shape[0]
+    cfg = jsvgp.SVGPConfig(jk.RBF(input_dim=5), 12)
+    tcfg = tsvgp.SVGPConfig(tk.RBF(input_dim=5), 12)
+    jp = jsvgp.init_params(cfg, X, noise=0.3, dtype=jnp.float64)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), dtype=torch.float64, device="cpu")
+    iters, bs, key = 20, 64, jax.random.PRNGKey(4)
+    ref = jtrain.fit_minibatch(
+        lambda p, b: -jsvgp.elbo(cfg, p, b["X"], b["Y"], T_total=T), jp, {"X": jnp.asarray(X), "Y": jnp.asarray(Y)},
+        iters=iters, batch_size=bs, key=key,
+        optimizer=optax.chain(optax.clip_by_global_norm(10.0), optax.adam(optax.cosine_decay_schedule(5e-2, iters, 0.01))),
+        natgrad_block="qu", natgrad_lr=optax.cosine_decay_schedule(0.3, iters, 0.05),
+    )
+    ours = train.fit_minibatch(
+        lambda p, b: -tsvgp.elbo(tcfg, p, b["X"], b["Y"], T_total=T), tp, {"X": torch.tensor(X), "Y": torch.tensor(Y)},
+        iters=iters, batch_size=bs, indices=torch.tensor(_jax_indices(key, iters, bs, T)),
+        learning_rate=train.cosine_decay_schedule(5e-2, iters, 0.01), clip_norm=10.0,
+        natgrad_block="qu", natgrad_lr=train.cosine_decay_schedule(0.3, iters, 0.05),
+    )
+    np.testing.assert_allclose(ours.losses.numpy(), np.asarray(ref.losses), rtol=1e-8)
+    _close(ours.params, ref.params, 1e-8)
+    assert float(ours.losses[-1]) < float(ours.losses[0])
+
+
+def test_fit_minibatch_aux_trailing_chunk_exact_iters(corpus):
+    """tests/test_minibatch_training.py's case: iters=25 with aux_every=10
+    runs exactly 25 updates, the aux refreshed before steps 0, 10 and 20, and
+    equals aux_every=5 (a constant aux) at rtol 1e-12 and the JAX package at
+    rtol 1e-8, the draws replayed."""
+    X, Y = corpus
+    X, Y = X[:297], Y[:297]
+    T = X.shape[0]
+    cfg = jsvgp.SVGPConfig(jk.RBF(input_dim=5), 8)
+    tcfg = tsvgp.SVGPConfig(tk.RBF(input_dim=5), 8)
+    jp = jsvgp.init_params(cfg, X, noise=0.3, dtype=jnp.float64)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), dtype=torch.float64, device="cpu")
+    key = jax.random.PRNGKey(2)
+    idx = torch.tensor(_jax_indices(key, 25, 16, T))
+    refreshed = []
+
+    def aux_fn(p):
+        refreshed.append(len(refreshed))
+        return 0.0
+
+    def loss(p, b, aux=None):
+        return -tsvgp.elbo(tcfg, p, b[0], b[1], T_total=T)
+
+    data = (torch.tensor(X), torch.tensor(Y))
+    kw = dict(batch_size=16, indices=idx, learning_rate=1e-2)
+    ours = train.fit_minibatch(loss, tp, data, iters=25, aux_fn=aux_fn, aux_every=10, **kw)
+    assert ours.losses.shape == (25,) and len(refreshed) == 3
+    even = train.fit_minibatch(loss, tp, data, iters=25, aux_fn=lambda p: 0.0, aux_every=5, **kw)
+    for (path, a), (_, b) in zip(train.leaves_with_paths(ours.params), train.leaves_with_paths(even.params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, err_msg=path)
+    ref = jtrain.fit_minibatch(lambda p, b, aux=None: -jsvgp.elbo(cfg, p, b[0], b[1], T_total=T), jp,
+                               (jnp.asarray(X), jnp.asarray(Y)), iters=25, batch_size=16, key=key,
+                               learning_rate=1e-2, aux_fn=lambda p: 0.0, aux_every=10)
+    np.testing.assert_allclose(ours.losses.numpy(), np.asarray(ref.losses), rtol=1e-8)
+    _close(ours.params, ref.params, 1e-8)
+
+
+def test_fit_minibatch_draws_on_a_seeded_generator(corpus):
+    """Without ``indices`` the draws come from a generator seeded by
+    ``seed``: the same seed gives the same run, another seed another."""
+    X, Y = corpus
+    tcfg = tsgp.SparseGPConfig(tk.RBF(input_dim=5), 6)
+    tp = tsgp.init_params(tcfg, X, dtype=torch.float64, device="cpu")
+    data = {"X": torch.tensor(X), "Y": torch.tensor(Y)}
+
+    def run(**kw):
+        return train.fit_minibatch(lambda p, b: -tsgp.elbo(tcfg, p, b["X"], b["Y"]), tp, data, iters=3,
+                                   batch_size=32, **kw).losses
+
+    assert torch.equal(run(seed=1), run(seed=1)) and not torch.equal(run(seed=1), run(seed=2))
+    gen = torch.Generator().manual_seed(1)
+    assert torch.equal(run(generator=gen), run(seed=1))
+    with pytest.raises(ValueError, match="indices"):
+        run(indices=torch.zeros((2, 32), dtype=torch.int64))
+
+
+def _sgp_problem(corpus, M=6, rows=200):
+    X, Y = corpus
+    X, Y = X[:rows], Y[:rows]
+    cfg = jsgp.SparseGPConfig(jk.RBF(input_dim=5), M)
+    tcfg = tsgp.SparseGPConfig(tk.RBF(input_dim=5), M)
+    jp = jsgp.init_params(cfg, X, noise=0.3, dtype=jnp.float64)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), dtype=torch.float64, device="cpu")
+    jX, jY, tX, tY = jnp.asarray(X), jnp.asarray(Y), torch.tensor(X), torch.tensor(Y)
+    return (lambda p: -jsgp.elbo(cfg, p, jX, jY)), jp, (lambda p: -tsgp.elbo(tcfg, p, tX, tY)), tp
+
+
+def test_fit_scg_matches_jax(corpus):
+    jloss, jp, tloss, tp = _sgp_problem(corpus)
+    ref = jtrain.fit_scg(jloss, jp, iters=30)
+    ours = train.fit_scg(tloss, tp, iters=30)
+    np.testing.assert_allclose(ours.losses.numpy(), np.asarray(ref.losses), rtol=1e-8)
+    _close(ours.params, ref.params, 1e-8)
+    assert (np.diff(ours.losses.numpy()) <= 0).all()
+
+
+def test_fit_scipy_lbfgs_matches_jax(corpus):
+    jloss, jp, tloss, tp = _sgp_problem(corpus)
+    ref = jtrain.fit_scipy_lbfgs(jloss, jp, max_iters=40)
+    ours = train.fit_scipy_lbfgs(tloss, tp, max_iters=40)
+    np.testing.assert_allclose(float(ours.losses[-1]), float(ref.losses[-1]), rtol=1e-6)
+    assert float(ours.losses[-1]) < float(ours.losses[0])
+
+
+def test_optimize_restarts_matches_jax():
+    """tests/test_utils.py's tilted double well: the deeper negative basin
+    wins on the raw loss, and ``accept_fn`` vetoes it; the kept restart's
+    parameters and losses agree with the JAX package's."""
+
+    def loss(lib):
+        return lambda p: ((p["x"] ** 2 - 1.0) ** 2 + 0.1 * p["x"]).sum()
+
+    def init(lib):
+        return lambda seed: {"x": lib.asarray([float(seed) * 2.0 - 2.5], dtype=lib.float64)}
+
+    kw = dict(iters=500, learning_rate=0.05)
+    for accept in (None, "positive"):
+        ref = jtrain.optimize_restarts(loss(jnp), init(jnp), range(4), **kw,
+                                       accept_fn=None if accept is None else (lambda p: jnp.all(p["x"] > 0)))
+        ours = train.optimize_restarts(loss(torch), init(torch), range(4), **kw,
+                                       accept_fn=None if accept is None else (lambda p: (p["x"] > 0).all()))
+        assert (float(ours.params["x"][0]) > 0) == (accept is not None)
+        np.testing.assert_allclose(ours.params["x"].numpy(), np.asarray(ref.params["x"]), rtol=1e-8)
+        np.testing.assert_allclose(ours.losses.numpy(), np.asarray(ref.losses), rtol=1e-8)
+    # every restart vetoed: the least final loss wins regardless
+    ours = train.optimize_restarts(loss(torch), init(torch), range(4), **kw, accept_fn=lambda p: False)
+    assert float(ours.params["x"][0]) < 0
+
+
+def test_fit_adam_runs_exactly_iters_where_jax_pads_the_last_chunk():
+    """ROADMAP.md Queue 3: with ``aux_fn`` and ``iters`` not a multiple of
+    ``aux_every``, the JAX package's ``fit_adam`` runs whole chunks and keeps
+    only the first ``iters`` losses, so its parameters are those after
+    ceil(iters / aux_every) * aux_every updates. The port runs ``iters``."""
+    x0 = np.linspace(0.1, 0.9, 6).reshape(2, 3)
+    y0 = np.array([1.5, -0.5])
+    pj = {"x": jnp.asarray(x0), "y": jnp.asarray(y0)}
+    pt = {"x": torch.tensor(x0), "y": torch.tensor(y0)}
+    jl, tl = _quadratic(jnp), _quadratic(torch)
+    ref = jtrain.fit_adam(lambda p, a: jl(p), pj, iters=3, learning_rate=0.05, aux_fn=lambda p: 0.0, aux_every=10)
+    ours3 = train.fit_adam(lambda p, a: tl(p), pt, iters=3, learning_rate=0.05, aux_fn=lambda p: 0.0, aux_every=10)
+    ours10 = train.fit_adam(tl, pt, iters=10, learning_rate=0.05)
+    assert np.asarray(ref.losses).shape == (3,)
+    np.testing.assert_allclose(ours3.losses.numpy(), np.asarray(ref.losses), rtol=1e-10)
+    _close(ours10.params, ref.params, 1e-10)
+    assert not np.allclose(ours3.params["x"].numpy(), np.asarray(ref.params["x"]))
