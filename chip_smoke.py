@@ -90,6 +90,42 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    against their plain float64 versions at K1's and K2's tolerances, and
    the ELBO against the float64 plain bound at 2e-4 relative.
 
+9. Config 5 in float32 at the committed anchor ``artifacts/pcheck_params_r5.npz``
+   (the flagship: actuator, ``deep_rgp_config(wins=[0,10], u_win=10,
+   num_inducing=100)``, 25 hyperparameters).
+   9a. The potential: the frozen-basis float64 potential at the anchor must
+   equal ``U_f64_frozen`` of ``artifacts/surrogate_check_r5.json`` (-13.3)
+   within its rounding (0.05). At the last draw of each of the first 128
+   chains of ``artifacts/pcheck_tpu_r5.npz``, one batched float32
+   value-and-gradient through ``make_rgp_potential``'s vmapped potential on
+   each route, ``scan`` (the plain chunked Psi2, block 32) and ``auto`` (K1/K2
+   through the Function's vmap rule: exactly one K1 and one K2 launch per
+   chain per layer, the plain path never), against the float64 plain
+   potential at the same points. float32 itself is up to ~1.6 nats off
+   float64 at these points (the plain route, measured on the card; the
+   surrogate check's 0.79 was the worst of four points), so each route is held
+   against what float32 does: the plain route's median value error within 1
+   nat, and each route's worst value error and worst gradient error at most
+   twice the plain float32 route's own. Per route: ms per batched
+   value-and-gradient, device ops and busy share, launches, peak memory.
+   9b. The NUTS twin (``rgp_tpu_torch.bench.sampling.bench_nuts``) at
+   ``rgp_tpu/bench/all.py``'s quick budget (128 chains, 24 warmup steps, 8
+   draws) with the JAX protocol (``scan``): every draw finite, every group's
+   final step size at least 1e-2 (a collapsed step size is the death-spiral
+   signature), K2 never launched and K1 only by the frozen whitening's ladder
+   pass at the anchor (one per layer). Printed, not gated: the twin's JSON
+   line, and the
+   draws' moment statistics against ``artifacts/pcheck_tpu_r5.npz`` (the same
+   float32 frozen-basis surrogate) and, for information only, against the
+   float64 fresh-basis chain ``artifacts/pcheck_cpu_r5.npz`` (another
+   surrogate).
+   9c. ``sample_nuts`` with 4 chains (``auto``, a fresh laddered whitening per
+   evaluation, ``hessian_precondition=True``), 6 warmup steps and 4 draws:
+   finite draws, and K1 and K2 launched on that path.
+   9d. The SMC twin (``bench_smc``, 1024 particles over the 512 test steps of
+   the flagship fitted for 300 steps): a finite log-marginal and every step's
+   ESS above 0; steps/s, the log-marginal and the mean ESS fraction printed.
+
 Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -127,6 +163,14 @@ _C4_ROUTES = {"gp_narx_collapsed": 1000, "svgp_natgrad": 1000, "svgp_natgrad_col
 _C4_BATCH = 512  # rgp_tpu/bench/harness.py's default
 _C4_TIMED_FREERUNS = ("gp_narx_collapsed", "svgp_natgrad")
 _SVGP_UNCERTAIN = (512, 100, 20)  # (T, M, Q): config 1's hidden-layer shape
+# config 5: the committed anchor and the JAX package's draws at it
+_C5_ANCHOR = "artifacts/pcheck_params_r5.npz"
+_C5_TPU_DRAWS = "artifacts/pcheck_tpu_r5.npz"  # (256 chains, 64 draws, 25): the f32 frozen-basis surrogate
+_C5_CPU_DRAWS = "artifacts/pcheck_cpu_r5.npz"  # (4, 400, 25): the f64 fresh-basis chain, another surrogate
+_C5_U_ANCHOR = -13.3  # U_f64_frozen at the anchor, artifacts/surrogate_check_r5.json (2 decimals)
+_C5_CHAINS = 128
+_C5_WARMUP, _C5_DRAWS = 24, 8  # rgp_tpu/bench/all.py:35's quick budget
+_C5_SMC_PARTICLES = 1024  # rgp_tpu/bench/all.py:128
 
 
 def fail(msg):
@@ -853,6 +897,152 @@ def phase_svgp_uncertain(psi2, psi_stats):
     return counts
 
 
+def _c5_counts(psi2, psi_stats):
+    return {"k1": psi2.launches, "k2": psi2.bwd_launches, "plain_psi2_calls": psi_stats.plain_psi2_calls}
+
+
+def _c5_zero(psi2, psi_stats):
+    psi2.launches = 0
+    psi2.bwd_launches = 0
+    psi_stats.plain_psi2_calls = 0
+
+
+def phase_config5_potential(psi2, psi_stats, root, card):
+    """Phase 9a: the config-5 potential at the anchor (float64) and at 128
+    of the JAX package's draws, batched, on both Psi2 routes (float32).
+    Returns the launch counts of the ``auto`` route's one batched
+    value-and-gradient."""
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.sample.api import make_rgp_potential
+    from rgp_tpu_torch.sample.hmc import value_and_grad
+
+    dev = torch.device("cuda")
+    anchor = os.path.join(root, _C5_ANCHOR)
+    cfg, p64, Y64, U64, _, _ = _flagship(0, torch.float64, anchor)
+    pot64, flat64, _, b64 = make_rgp_potential(cfg, p64, Y64, U64, block=64, psi_prefer="scan",
+                                                fixed_whitening=True)
+    with torch.no_grad():
+        u_anchor = float(pot64(flat64))
+    print("config5 anchor", json.dumps({"U_f64_frozen": u_anchor, "artifact": _C5_U_ANCHOR, "card": card}))
+    check(abs(u_anchor - _C5_U_ANCHOR) <= 0.05,
+          f"frozen f64 potential at the anchor {u_anchor}, surrogate_check_r5.json has {_C5_U_ANCHOR}")
+
+    with np.load(os.path.join(root, _C5_TPU_DRAWS)) as z:
+        points = z["draws"][:_C5_CHAINS, -1]  # the last draw of each of the first 128 chains
+    Z64 = torch.tensor(points, dtype=torch.float64, device=dev)
+    # float64 reference, 32 chains at a time (no per-chunk recompute under vmap)
+    ref = [value_and_grad(b64, Z64[i:i + 32]) for i in range(0, _C5_CHAINS, 32)]
+    u64, g64 = torch.cat([r[0] for r in ref]), torch.cat([r[1] for r in ref])
+    del ref, b64, pot64
+
+    cfg32, p32, Y32, U32, _, _ = _flagship(0, torch.float32, anchor)
+    Z32 = torch.tensor(points, dtype=torch.float32, device=dev)
+    rows, counts = {}, {}
+    for route in ("scan", "auto"):
+        _, _, _, batched = make_rgp_potential(cfg32, p32, Y32, U32, block=32, psi_prefer=route,
+                                              fixed_whitening=True)
+        value_and_grad(batched, Z32)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _c5_zero(psi2, psi_stats)
+        u, g = value_and_grad(batched, Z32)
+        torch.cuda.synchronize()
+        counts[route] = _c5_counts(psi2, psi_stats)
+        peak = torch.cuda.max_memory_allocated()
+        ms = time_host_ms(lambda: value_and_grad(batched, Z32), n=3)
+        prof = profile_device(lambda: value_and_grad(batched, Z32), f"config5 potential {route}", 1)
+        u_err = (u.double() - u64).abs()
+        g_err = (g.double() - g64).abs()
+        rows[route] = {
+            "route": route, "chains": _C5_CHAINS, "launches": counts[route], "ms_per_value_and_grad": ms,
+            "device_ops": prof["device_ops"], "device_busy_share": prof["device_busy_share"],
+            "peak_memory_bytes": peak, "value_max_abs_err_vs_f64": float(u_err.max()),
+            "value_median_abs_err_vs_f64": float(u_err.median()), "grad_max_abs_err_vs_f64": float(g_err.max()),
+            "grad_max_abs_f64": float(g64.abs().max()), "finite": bool(torch.isfinite(u).all()
+                                                                       and torch.isfinite(g).all()),
+            "card": card,
+        }
+        print("config5 potential", json.dumps(rows[route]))
+        del batched
+        torch.cuda.empty_cache()
+    n_layers = cfg32.n_hidden + 1
+    check(counts["auto"] == {"k1": n_layers * _C5_CHAINS, "k2": n_layers * _C5_CHAINS, "plain_psi2_calls": 0},
+          f"auto potential at {_C5_CHAINS} chains: launches {counts['auto']}, want one K1 and one K2 per "
+          f"chain per layer and no plain path")
+    check(counts["scan"]["k1"] == 0 and counts["scan"]["k2"] == 0 and counts["scan"]["plain_psi2_calls"] > 0,
+          f"scan potential: launches {counts['scan']}, want the plain path only")
+    plain = rows["scan"]
+    check(plain["value_median_abs_err_vs_f64"] <= 1.0,
+          f"config 5 plain float32 potential: median {plain['value_median_abs_err_vs_f64']} nats from float64")
+    for route, row in rows.items():
+        check(row["finite"], f"config 5 {route} potential: non-finite value or gradient")
+        for what in ("value", "grad"):
+            key = f"{what}_max_abs_err_vs_f64"
+            check(row[key] <= 2.0 * plain[key],
+                  f"config 5 {route} potential: {what} error {row[key]} above twice the plain float32 "
+                  f"route's {plain[key]}")
+    return counts["auto"]
+
+
+def phase_config5_nuts(psi2, psi_stats, root, card):
+    """Phase 9b: the NUTS twin at the quick budget, the JAX protocol."""
+    from rgp_tpu_torch.bench.posterior_check import compare_draws
+    from rgp_tpu_torch.bench.sampling import bench_nuts
+
+    _c5_zero(psi2, psi_stats)
+    rec, draws, diverging = bench_nuts(_C5_CHAINS, _C5_WARMUP, _C5_DRAWS, 6, 0,
+                                       params_npz=os.path.join(root, _C5_ANCHOR), return_draws=True)
+    counts = _c5_counts(psi2, psi_stats)
+    print("config5 nuts launches", json.dumps(counts))
+    print("config5 nuts", json.dumps(rec))
+    for path, note in ((_C5_TPU_DRAWS, "the same f32 frozen-basis surrogate"),
+                       (_C5_CPU_DRAWS, "f64 fresh-basis chain, another surrogate: information only")):
+        with np.load(os.path.join(root, path)) as z:
+            stats = compare_draws(draws, diverging, z["draws"], z["diverging"])
+        print("config5 nuts moments", json.dumps({"against": path, "note": note, **stats, "card": card}))
+    check(draws.shape == (_C5_CHAINS, _C5_DRAWS, 25) and bool(np.isfinite(draws).all()),
+          f"config 5 NUTS: draws of shape {draws.shape}, or not finite")
+    eps = rec["details"]["step_size_per_group"]
+    check(min(eps) >= 1e-2, f"config 5 NUTS: the step size collapsed to {eps}")
+    # scan: K1 only for the frozen whitening's ladder pass at the anchor, one per layer
+    check(counts["k1"] == 2 and counts["k2"] == 0, f"config 5 NUTS twin (scan) launches: {counts}")
+    return rec
+
+
+def phase_config5_sample_nuts(psi2, psi_stats, root, card):
+    """Phase 9c: the port's own few-chain config-5 path through K1/K2."""
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.sample.api import sample_nuts
+
+    cfg, params, Y, U, _, _ = _flagship(0, torch.float32, os.path.join(root, _C5_ANCHOR))
+    _c5_zero(psi2, psi_stats)
+    t0 = time.perf_counter()
+    res = sample_nuts(cfg, params, Y, U, 0, n_samples=4, n_warmup=6, n_chains=4, max_depth=5,
+                      hessian_precondition=True)
+    s = res.samples.cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = _c5_counts(psi2, psi_stats)
+    row = {"chains": 4, "n_warmup": 6, "n_samples": 4, "max_depth": 5, "wall_seconds": wall,
+           "launches": counts, "mean_accept": float(res.accept_prob.mean()),
+           "divergence_rate": float(res.diverging.double().mean()), "step_size": float(res.step_size),
+           "card": card}
+    print("config5 sample_nuts", json.dumps(row))
+    check(bool(np.isfinite(s).all()), "config 5 sample_nuts: a draw is not finite")
+    check(counts["k1"] > 0 and counts["k2"] > 0, f"config 5 sample_nuts did not reach K1 and K2: {counts}")
+    return counts
+
+
+def phase_config5_smc(card):
+    """Phase 9d: the SMC twin at 1024 particles."""
+    from rgp_tpu_torch.bench.sampling import bench_smc
+
+    rec, res = bench_smc(_C5_SMC_PARTICLES, 300, return_result=True)
+    print("config5 smc", json.dumps({**rec, "min_ess": float(res.ess_history.min()), "card": card}))
+    check(bool(torch.isfinite(res.log_marginal)), f"config 5 SMC: log-marginal {float(res.log_marginal)}")
+    check(bool((res.ess_history > 0).all()), "config 5 SMC: a step's ESS is 0")
+    return rec
+
+
 def ptxas_report(log):
     """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
     instance, from the ptxas report nvcc wrote beside the library."""
@@ -925,6 +1115,12 @@ def main():
     config2 = timed("7", phase_configs_2_3, psi2, psi_stats)
     config4 = timed("8", phase_config4, psi2, psi_stats, card)
     uncertain = timed("8 (svgp uncertain)", phase_svgp_uncertain, psi2, psi_stats)
+    t9 = time.perf_counter()
+    c5_potential = timed("9a (config 5 potential)", phase_config5_potential, psi2, psi_stats, root, card)
+    timed("9b (config 5 NUTS twin)", phase_config5_nuts, psi2, psi_stats, root, card)
+    c5_sample = timed("9c (config 5 sample_nuts)", phase_config5_sample_nuts, psi2, psi_stats, root, card)
+    timed("9d (config 5 SMC twin)", phase_config5_smc, card)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s wall")
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
@@ -946,11 +1142,13 @@ def main():
         row("psi2_fwd", "rgp_tpu_torch/csrc/psi2_fwd.cu", "rgp_tpu/ops/pallas/psi2.py:147",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
             {"training": training["k1"], "serving": serving, "config2_training": config2["k1"],
-             "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"]}, k1_rows),
+             "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"],
+             "config5_potential_auto": c5_potential["k1"], "config5_sample_nuts_4chains": c5_sample["k1"]}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
             {"training": training["k2"], "serving": 0, "config2_training": config2["k2"],
-             "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"]}, k2_rows),
+             "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"],
+             "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"]}, k2_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -25,6 +25,10 @@ Config 4 (minibatch SVI with natural-gradient q(u)): ``rgp.svgp`` with
 ``rgp_tpu_torch.train.fit_minibatch(..., natgrad_block="qu")``, or the
 harness, ``python -m rgp_tpu_torch.bench --task long_corpus --method
 svgp_natgrad``.
+
+Config 5 (NUTS over the hyperparameters, SMC over latent trajectories):
+``rgp_tpu_torch.sample.api.sample_nuts`` / ``smc``, or ``python -m
+rgp_tpu_torch.bench.sampling --what nuts|smc``.
 """
 
 from . import kernels, linalg, params

@@ -121,7 +121,7 @@ def whitening_basis(Kmm, psi2=None, beta=None, spectral_floor: Optional[float] =
 
 
 def _common(kern: Kernel, kp, Z, psi2, noise, need_trace: bool = True, W=None,
-            psi1_factor=None):
+            psi1_factor=None, jitter: Optional[float] = None):
     """Shared whitened factorizations for the collapsed bound:
 
       Kt = W^T Kmm W + diag(topup),  At = beta W^T Psi2 W,  Ct = Kt + At
@@ -129,7 +129,10 @@ def _common(kern: Kernel, kp, Z, psi2, noise, need_trace: bool = True, W=None,
 
     The whitened matrices are ~identity-conditioned, so the Cholesky ladder's
     base jitter stays at the dtype's resolution. ``psi1_factor`` (certain
-    inputs) forms At from the factor Psi1, PSD by construction."""
+    inputs) forms At from the factor Psi1, PSD by construction. ``jitter``
+    replaces the ladder's base rung: sampler potentials pass a larger one
+    (1e-3) so the first rung succeeds across the sampled region and the
+    ladder's rung flips, cliffs of hundreds of nats, never trigger."""
     Kmm = kern.K(kp, Z)
     beta = 1.0 / noise
     if W is not None:
@@ -149,7 +152,7 @@ def _common(kern: Kernel, kp, Z, psi2, noise, need_trace: bool = True, W=None,
         WtP2W = hdot(W.T, hdot(psi2s, W))
         At = beta * 0.5 * (WtP2W + WtP2W.T)
     Ct = Kt + At
-    j0 = 1e-12 if Kmm.dtype == torch.float64 else 1e-6
+    j0 = jitter if jitter is not None else (1e-12 if Kmm.dtype == torch.float64 else 1e-6)
     Lk = jitchol(Kt, jitter0=j0)
     Lc = jitchol(Ct, jitter0=j0)
     tr_KiP2 = torch.trace(cho_solve(Lk, At)) / beta if need_trace else None
@@ -158,12 +161,12 @@ def _common(kern: Kernel, kp, Z, psi2, noise, need_trace: bool = True, W=None,
 
 def collapsed_bound_from_suffstats(kern: Kernel, kp, Z, log_noise, psi0_sum, psi1Y, psi2,
                                    trYY, T, D, *, W: Optional[Whitening] = None,
-                                   psi1_factor=None):
+                                   psi1_factor=None, jitter: Optional[float] = None):
     """F0 from the additive sufficient statistics
     (sum_t psi0_t, Psi1^T Y, sum_t Psi2_t, E||Y||^2, T)."""
     noise = positive(log_noise)
     _, W, Lk, Lc, tr_KmmInvPsi2, beta = _common(
-        kern, kp, Z, psi2, noise, W=W, psi1_factor=psi1_factor
+        kern, kp, Z, psi2, noise, W=W, psi1_factor=psi1_factor, jitter=jitter
     )
     c = solve_triangular(Lc, hdot(W.T, psi1Y))
     log_det_B = log_det_from_chol(Lc) - log_det_from_chol(Lk)
@@ -177,9 +180,11 @@ def collapsed_bound_from_suffstats(kern: Kernel, kp, Z, log_noise, psi0_sum, psi
 
 
 def collapsed_bound(kern: Kernel, kp, Z, log_noise, stats: PsiStats, Y, Y_var=None, *,
-                    W: Optional[Whitening] = None, certain: bool = False):
+                    W: Optional[Whitening] = None, certain: bool = False,
+                    jitter: Optional[float] = None):
     """The collapsed bound F0. ``Y`` are target means (T, D); ``Y_var``
-    optional target variances for variational (hidden-layer) targets."""
+    optional target variances for variational (hidden-layer) targets;
+    ``jitter`` overrides the Cholesky ladder's base rung (see :func:`_common`)."""
     T, D = Y.shape
     psi1Y = hdot(stats.psi1.T, Y)  # (M, D)
     trYY = (Y * Y).sum()
@@ -187,7 +192,7 @@ def collapsed_bound(kern: Kernel, kp, Z, log_noise, stats: PsiStats, Y, Y_var=No
         trYY = trYY + Y_var.sum()
     return collapsed_bound_from_suffstats(
         kern, kp, Z, log_noise, stats.psi0.sum(), psi1Y, stats.psi2, trYY, T, D,
-        W=W, psi1_factor=stats.psi1 if certain else None,
+        W=W, psi1_factor=stats.psi1 if certain else None, jitter=jitter,
     )
 
 
@@ -201,13 +206,13 @@ class SparsePosterior(NamedTuple):
 
 
 def posterior(kern: Kernel, kp, Z, log_noise, stats: PsiStats, Y, *,
-              certain: bool = False) -> SparsePosterior:
+              certain: bool = False, jitter: Optional[float] = None) -> SparsePosterior:
     """Sufficient statistics of q(u) for prediction, through the same
-    whitened factorization as the bound."""
+    whitened factorization as the bound (``jitter`` as in :func:`_common`)."""
     noise = positive(log_noise)
     _, Wb, Lk, Lc, _, beta = _common(
         kern, kp, Z, stats.psi2, noise, need_trace=False,
-        psi1_factor=stats.psi1 if certain else None,
+        psi1_factor=stats.psi1 if certain else None, jitter=jitter,
     )
     psi1Y = hdot(stats.psi1.T, Y)
     alpha = beta * hdot(Wb, cho_solve(Lc, hdot(Wb.T, psi1Y)))

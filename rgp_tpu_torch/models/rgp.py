@@ -234,41 +234,52 @@ def _layer_inputs(cfg: RGPConfig, h: int, mu_full, lam_full, mu_lower_t, lam_low
     return torch.cat([own_mu, low_mu], dim=-1), torch.cat([own_s, low_s], dim=-1)
 
 
-def _layer_stats(cfg: RGPConfig, params, Y, U, block):
+def _layer_stats(cfg: RGPConfig, params, Y, U, block, prefer="auto", remat=True):
     """Yields (kernel, layer params, psi stats, full latent means, full latent
     variances, window L) for every hidden layer, then the output layer's with
-    the last three None."""
+    the last three None. ``prefer`` and ``remat`` go to every
+    :func:`psi_statistics` call."""
     mus, lams = _hidden_moments(cfg, params, Y, U)
     mu_lower_t = lam_lower_t = None
     for h, spec in enumerate(cfg.layers):
         lp = params["layers"][h]
         L = spec.win
         X_mu, X_s = _layer_inputs(cfg, h, mus[h], lams[h], mu_lower_t, lam_lower_t, U)
-        stats = psi_statistics(spec.kernel, lp["kern"], lp["Z"], X_mu, X_s, block=block)
+        stats = psi_statistics(spec.kernel, lp["kern"], lp["Z"], X_mu, X_s, block=block, prefer=prefer,
+                               remat=remat)
         yield spec.kernel, lp, stats, mus[h], lams[h], L
         mu_lower_t, lam_lower_t = mus[h][L:], lams[h][L:]
     op = params["out"]
     Xo_mu = current_window(mu_lower_t, cfg.out_win)
     Xo_s = current_window(lam_lower_t, cfg.out_win)
-    stats = psi_statistics(cfg.out_kernel, op["kern"], op["Z"], Xo_mu, Xo_s, block=block)
+    stats = psi_statistics(cfg.out_kernel, op["kern"], op["Z"], Xo_mu, Xo_s, block=block, prefer=prefer,
+                           remat=remat)
     yield cfg.out_kernel, op, stats, None, None, None
 
 
-def elbo(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128, whitening=None):
+def elbo(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 128, whitening=None,
+         psi_prefer: str = "auto", chol_jitter: Optional[float] = None, psi_remat: bool = True):
     """REVARB evidence lower bound, one scalar. ``whitening``: optional H+1
-    precomputed :class:`Whitening` bases (see :func:`compute_whitenings`)."""
+    precomputed :class:`Whitening` bases (see :func:`compute_whitenings`).
+    ``psi_prefer``: ``"scan"`` sends every layer's RBF Psi2 sum to the plain
+    chunked path (a Hessian's route); ``chol_jitter`` overrides the whitened
+    Cholesky ladders' base rung (sampler potentials pass 1e-3); ``psi_remat``
+    False is for a caller under ``torch.func.vmap`` (see
+    :mod:`rgp_tpu_torch.ops.psi_stats`)."""
     total = 0.0
-    for h, (kern, lp, stats, mu_full, lam_full, L) in enumerate(_layer_stats(cfg, params, Y, U, block)):
+    layers = _layer_stats(cfg, params, Y, U, block, psi_prefer, psi_remat)
+    for h, (kern, lp, stats, mu_full, lam_full, L) in enumerate(layers):
         W = None if whitening is None else whitening[h]
         if mu_full is None:  # output layer
             total = total + collapsed_bound(
                 kern, lp["kern"], lp["Z"], _fln(cfg, lp["log_noise"]), stats, Y,
-                W=W,
+                W=W, jitter=chol_jitter,
             )
             continue
         tgt_mu, tgt_lam = mu_full[L:], lam_full[L:]
         total = total + collapsed_bound(
             kern, lp["kern"], lp["Z"], _fln(cfg, lp["log_noise"]), stats, tgt_mu, tgt_lam, W=W,
+            jitter=chol_jitter,
         )
         # entropy of q over targets + KL(init window || N(0,1))
         total = total + 0.5 * torch.log(2.0 * math.pi * math.e * tgt_lam).sum()

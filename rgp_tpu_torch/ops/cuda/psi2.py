@@ -33,7 +33,6 @@ import subprocess
 from pathlib import Path
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ...params import positive
 
@@ -387,19 +386,42 @@ class RBFPsi2Sum(torch.autograd.Function):
 
     The inputs are treated as independent: ``Z`` here is only the C term's
     factor, and autograd chains (base, E, D1, w) back through
-    :func:`rbf_psi2_precompute` by itself."""
+    :func:`rbf_psi2_precompute` by itself. K2 has no derivative of its own,
+    so the Function is differentiable once: a backward that builds a graph
+    (``create_graph=True``, as every second derivative does) raises. A
+    Hessian takes the plain path, ``psi_statistics(prefer="scan")``.
+    ``torch.autograd.function.once_differentiable`` alone is not enough: its
+    error node hangs off detached copies, so ``torch.autograd.grad`` with
+    ``inputs=`` prunes it and returns a second derivative that silently
+    lacks every path through K2.
+
+    Under ``torch.func.vmap`` (a batch of sampler chains) the :meth:`vmap`
+    rule applies the Function once per batch instance: one K1 launch each, and
+    one K2 launch each in the backward. ``Z`` may be batched or shared."""
 
     @staticmethod
-    def forward(ctx, base, E, D1, w, Z):
-        out = psi2_time_sum(base, E, D1, w, Z)
-        ctx.save_for_backward(base, E, D1, w, Z, out)
-        return out
+    def forward(base, E, D1, w, Z):
+        return psi2_time_sum(base, E, D1, w, Z)
 
     @staticmethod
-    @once_differentiable
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
     def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError("RBFPsi2Sum (K1/K2) is differentiable once; take second derivatives "
+                               "through the plain path (psi_statistics(prefer='scan'))")
         base, E, D1, w, Z, out = ctx.saved_tensors
         return psi2_time_sum_bwd(base, E, D1, w, Z, g, out)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        def instance(i):
+            return [x if d is None else x.select(d, i) for x, d in zip(args, in_dims)]
+
+        outs = [RBFPsi2Sum.apply(*(x.contiguous() for x in instance(i))) for i in range(info.batch_size)]
+        return torch.stack(outs), 0
 
 
 def rbf_psi2_sum(p, Z, mu, s):

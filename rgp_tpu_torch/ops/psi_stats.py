@@ -15,9 +15,16 @@ included: a float32 CUDA tensor goes to the hand-written kernels
 (:mod:`rgp_tpu_torch.ops.cuda.psi2`): K1 for the value and, when gradients
 are taken, K2 for the backward. A CPU tensor, or a float64 CUDA tensor, goes
 to the plain chunked torch path, which recomputes each chunk in the backward
-(the kernels take float32 only, as the JAX package's Pallas route did). The
-plain path counts its calls in ``plain_psi2_calls`` so a run can show which
-route it took.
+(the kernels take float32 only, as the JAX package's Pallas route did).
+``prefer="scan"`` sends every RBF Psi2 time sum to the plain chunked path
+whatever the device (the JAX package's ``prefer="scan"``): the route of a
+Hessian, which cannot pass through K2. The plain path counts its calls in
+``plain_psi2_calls`` so a run can show which route it took.
+
+``remat=False`` turns the per-chunk recomputation off. A caller that runs the
+statistics under ``torch.func.vmap`` (the batched sampler potential) passes
+it: ``torch.utils.checkpoint`` cannot run on batched tensors, and autograd
+then keeps every chunk's intermediates, the memory the chunking would save.
 """
 
 from __future__ import annotations
@@ -96,21 +103,22 @@ def _rbf_psi2_per_t(p, Z, mu, s):
     return torch.exp(_rbf_log_psi2_per_t(p, Z, mu, s))
 
 
-def _chunked_sum(chunk_fn, mu, s, block):
+def _chunked_sum(chunk_fn, mu, s, block, remat=True):
     """sum over chunks of ``block`` timesteps of ``chunk_fn(mu_c, s_c)``, an
     (M, M) partial sum; ``block=None`` takes all T at once.
 
-    With grad on, each chunk is recomputed in the backward
+    With grad on and ``remat``, each chunk is recomputed in the backward
     (``torch.utils.checkpoint``): otherwise autograd keeps every chunk's
     (block, M, M) intermediate, i.e. the whole dense tensor the chunking is
-    there to avoid."""
+    there to avoid. ``remat=False`` is for callers under ``torch.func.vmap``
+    (see the module note)."""
     T = mu.shape[0]
     if block is None or T <= block:
         return chunk_fn(mu, s)
     out = None
     for start in range(0, T, block):
         mu_c, s_c = mu[start:start + block], s[start:start + block]
-        if torch.is_grad_enabled():
+        if remat and torch.is_grad_enabled():
             part = checkpoint(chunk_fn, mu_c, s_c, use_reentrant=False)
         else:
             part = chunk_fn(mu_c, s_c)
@@ -118,18 +126,20 @@ def _chunked_sum(chunk_fn, mu, s, block):
     return out
 
 
-def _rbf_psi2_sum_chunked(p, Z, mu, s, block):
+def _rbf_psi2_sum_chunked(p, Z, mu, s, block, remat=True):
     """Plain Psi2 time sum over chunks of ``block`` timesteps (counterpart of
     the JAX package's ``_rbf_psi2_sum_xla``); ``block=None`` materializes."""
-    return _chunked_sum(lambda mu_c, s_c: _rbf_psi2_chunk(p, Z, mu_c, s_c), mu, s, block)
+    return _chunked_sum(lambda mu_c, s_c: _rbf_psi2_chunk(p, Z, mu_c, s_c), mu, s, block, remat)
 
 
-def _rbf_psi2_sum(p, Z, mu, s, block):
+def _rbf_psi2_sum(p, Z, mu, s, block, prefer="auto", remat=True):
     global plain_psi2_calls
-    if mu.is_cuda and mu.dtype == torch.float32:
+    if prefer not in ("auto", "scan"):
+        raise ValueError(f"prefer must be 'auto' or 'scan', got {prefer!r}")
+    if prefer == "auto" and mu.is_cuda and mu.dtype == torch.float32:
         return rbf_psi2_sum(p, Z, mu, s)
     plain_psi2_calls += 1
-    return _rbf_psi2_sum_chunked(p, Z, mu, s, block)
+    return _rbf_psi2_sum_chunked(p, Z, mu, s, block, remat)
 
 
 # ------------------------------------------------------------------------ Linear
@@ -417,26 +427,31 @@ def _sum_psi2_cross(kern: Sum, p, Z, mu, s, per_t: bool = False):
 # ------------------------------------------------------------------ the sums
 
 
-def psi_statistics(kern: Kernel, p, Z, mu, s=None, *, block: Optional[int] = 128) -> PsiStats:
+def psi_statistics(kern: Kernel, p, Z, mu, s=None, *, block: Optional[int] = 128, prefer: str = "auto",
+                   remat: bool = True) -> PsiStats:
     """(Psi0, Psi1, sum_t Psi2) for q(x_t) = N(mu_t, diag(s_t)).
 
     ``s=None`` means certain inputs: Psi1 = K(mu, Z), Psi2 = K^T K, Psi0 =
     Kdiag, for any kernel. ``block`` chunks the plain Psi2 time sums
-    (``None`` materializes (T, M, M)); the CUDA kernels ignore it. Kernels
-    without closed-form psi statistics (:func:`has_closed_psi`) take certain
-    inputs only."""
+    (``None`` materializes (T, M, M)); the CUDA kernels ignore it.
+    ``prefer``: ``"auto"`` (float32 CUDA to K1/K2) or ``"scan"`` (the plain
+    chunked path on every device, honouring ``block``). ``remat``: recompute
+    each plain chunk in the backward; pass False under ``torch.func.vmap``
+    (see the module note). Kernels without closed-form psi statistics
+    (:func:`has_closed_psi`) take certain inputs only."""
     if s is None:
         K = kern.K(p, mu, Z)
         return PsiStats(kern.Kdiag(p, mu), K, hdot(K.T, K))
     s = _broadcast_s(mu, s)
     psi0, psi1 = _psi01(kern, p, Z, mu, s)
-    return PsiStats(psi0, psi1, _psi2_sum(kern, p, Z, mu, s, block))
+    return PsiStats(psi0, psi1, _psi2_sum(kern, p, Z, mu, s, block, prefer, remat))
 
 
-def _psi2_sum(kern, p, Z, mu, s, block):
+def _psi2_sum(kern, p, Z, mu, s, block, prefer="auto", remat=True):
     M = Z.shape[0]
     if isinstance(kern, RBF):
-        return _rbf_psi2_sum(p, kern_slice(kern, Z), kern_slice(kern, mu), kern_slice(kern, s), block)
+        return _rbf_psi2_sum(p, kern_slice(kern, Z), kern_slice(kern, mu), kern_slice(kern, s), block,
+                             prefer, remat)
     if isinstance(kern, Linear):
         return _linear_psi2_sum(p, kern_slice(kern, Z), kern_slice(kern, mu), kern_slice(kern, s))
     if isinstance(kern, Bias):
@@ -447,15 +462,15 @@ def _psi2_sum(kern, p, Z, mu, s, block):
     if isinstance(kern, Sum):
         total = None
         for k, pk in zip(kern.parts, p):
-            part = _psi2_sum(k, pk, Z, mu, s, block)
+            part = _psi2_sum(k, pk, Z, mu, s, block, prefer, remat)
             total = part if total is None else total + part
         return total + _sum_psi2_cross(kern, p, Z, mu, s, per_t=False)
     if isinstance(kern, Prod) and _prod_disjoint(kern):
-        return _chunked_per_t_sum(lambda mu_c, s_c: psi2_per_t(kern, p, Z, mu_c, s_c), mu, s, block)
+        return _chunked_per_t_sum(lambda mu_c, s_c: psi2_per_t(kern, p, Z, mu_c, s_c), mu, s, block, remat)
     raise NotImplementedError(f"psi2 for kernel {type(kern).__name__}")
 
 
-def _chunked_per_t_sum(per_t_fn, mu, s, block):
+def _chunked_per_t_sum(per_t_fn, mu, s, block, remat=True):
     """sum_t of a per-timestep (T, M, M) psi2, ``block`` timesteps at a time
     (the disjoint-Prod path)."""
-    return _chunked_sum(lambda mu_c, s_c: per_t_fn(mu_c, s_c).sum(0), mu, s, block)
+    return _chunked_sum(lambda mu_c, s_c: per_t_fn(mu_c, s_c).sum(0), mu, s, block, remat)

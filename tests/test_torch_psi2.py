@@ -358,3 +358,85 @@ def test_k2_kernel_matches_plain_on_card(rng, T, M, Q):
     for a, b in zip(k, ref):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=3e-4,
                                    atol=3e-5 * float(b.abs().max()))
+
+
+def _vmapped_psi2_loss(tp, Z, mu, s, G, shifts, psi2_sum=psi2.rbf_psi2_sum):
+    """sum(psi2_sum(...) * G) for one set of hyperparameters per shift of
+    log_ls: under ``torch.func.vmap`` (values and gradients of every set at
+    once) and per set in a loop."""
+    C = len(shifts)
+    log_ls = (tp["log_ls"][None] + torch.as_tensor(shifts, dtype=tp["log_ls"].dtype,
+                                                   device=tp["log_ls"].device)[:, None]).requires_grad_()
+    log_var = tp["log_var"].expand(C).clone().requires_grad_()
+
+    def loss(lv, ll):
+        return (psi2_sum({"log_var": lv, "log_ls": ll}, Z, mu, s) * G).sum()
+
+    batched = torch.func.vmap(loss)(log_var, log_ls)
+    grads = torch.autograd.grad(batched.sum(), (log_var, log_ls))
+    rows = []
+    for c in range(C):
+        lv, ll = log_var[c].detach().requires_grad_(), log_ls[c].detach().requires_grad_()
+        v = loss(lv, ll)
+        rows.append((v, *torch.autograd.grad(v, (lv, ll))))
+    return (batched, *grads), rows
+
+
+def test_psi2_function_under_vmap_equals_instances(rng):
+    """The Function's vmap rule (a chain axis of the sampler potential):
+    values and gradients of every batch instance equal the unbatched calls
+    (CPU tensors: the kernels' plain versions)."""
+    T, M, Q = 30, 9, 3
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    G = torch.tensor(rng.standard_normal((M, M)))
+    (vals, g_lv, g_ll), rows = _vmapped_psi2_loss(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s), G,
+                                                   [0.0, 0.2, -0.1])
+    for c, (v, glv, gll) in enumerate(rows):
+        np.testing.assert_allclose(float(vals[c]), float(v), rtol=1e-12)
+        np.testing.assert_allclose(float(g_lv[c]), float(glv), rtol=1e-12)
+        np.testing.assert_allclose(g_ll[c].numpy(), gll.numpy(), rtol=1e-12)
+
+
+def test_psi2_function_is_differentiable_once(rng):
+    """A second derivative through K1/K2 raises: ``torch.autograd.grad``
+    would otherwise prune ``once_differentiable``'s error node and return a
+    Hessian lacking every path through K2."""
+    mu, s, Z, _, tp = _inputs(rng, 20, 6, 2)
+
+    def f(log_ls):
+        p = {"log_var": tp["log_var"], "log_ls": log_ls}
+        return psi2.rbf_psi2_sum(p, torch.tensor(Z), torch.tensor(mu), torch.tensor(s)).pow(2).sum()
+
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.functional.hessian(f, tp["log_ls"].clone())
+
+
+@pytest.mark.cuda
+def test_psi2_function_under_vmap_on_card(rng):
+    """On the card the vmap rule launches K1 once per instance and K2 once
+    per instance in the backward; values and gradients against the plain
+    float64 path per instance, at K2's tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    T, M, Q, C = 512, 100, 20, 4
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    dev = torch.device("cuda")
+    t32 = {k: v.to(dev, torch.float32) for k, v in tp.items()}
+    G = torch.tensor(rng.standard_normal((M, M)), dtype=torch.float32, device=dev)
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in (Z, mu, s)]
+    shifts = [0.0, 0.2, -0.1, 0.3]
+    psi2.rbf_psi2_sum(t32, *args)  # build and load outside the count
+    n1, n2 = psi2.launches, psi2.bwd_launches
+    (vals, g_lv, g_ll), _ = _vmapped_psi2_loss(t32, *args, G, shifts)
+    assert (psi2.launches - n1, psi2.bwd_launches - n2) == (2 * C, 2 * C)  # the vmap, then the loop
+    t64 = {k: v.to(dev) for k, v in tp.items()}
+
+    def plain(p, Z_, mu_, s_):
+        return psi_stats._rbf_psi2_sum_chunked(p, Z_, mu_, s_, None)
+
+    _, rows = _vmapped_psi2_loss(t64, *[x.double() for x in args], G.double(), shifts, plain)
+    for c, (v, glv, gll) in enumerate(rows):
+        np.testing.assert_allclose(float(vals[c]), float(v), rtol=3e-4)
+        np.testing.assert_allclose(float(g_lv[c]), float(glv), rtol=3e-4)
+        np.testing.assert_allclose(g_ll[c].cpu().numpy(), gll.cpu().numpy(), rtol=3e-4,
+                                   atol=3e-4 * float(gll.abs().max()))

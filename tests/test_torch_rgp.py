@@ -118,6 +118,27 @@ def test_elbo_matches_jax(carried):
                                float(j_elbo(cfg, jp, Y, U, block=None)), rtol=1e-9)
 
 
+@pytest.mark.parametrize("chol_jitter", [1e-3, None])
+@pytest.mark.parametrize("psi_prefer", ["auto", "scan"])
+def test_elbo_jitter_and_dispatch_match_jax(carried, chol_jitter, psi_prefer):
+    """The sampler potential's arguments: a base jitter for the whitened
+    Cholesky ladders and the Psi2 dispatch, chunked (block 128 over T=512)."""
+    cfg, tcfg, jp, tp, (Y, U, _), (tY, tU, _) = carried
+    j_elbo = jax.jit(jr.elbo, static_argnums=0, static_argnames=("block", "psi_prefer", "chol_jitter"))
+    ours = tr.elbo(tcfg, tp, tY, tU, block=128, psi_prefer=psi_prefer, chol_jitter=chol_jitter)
+    ref = j_elbo(cfg, jp, Y, U, block=128, psi_prefer=psi_prefer, chol_jitter=chol_jitter)
+    np.testing.assert_allclose(float(ours), float(ref), rtol=1e-9)
+
+
+def test_elbo_chol_jitter_changes_the_bound(carried):
+    """A larger base rung shifts the bound (a uniform ~O(0.1-1) nat shift in
+    the reference), so the override is really applied."""
+    _, tcfg, _, tp, _, (tY, tU, _) = carried
+    e0 = float(tr.elbo(tcfg, tp, tY, tU, block=None))
+    e1 = float(tr.elbo(tcfg, tp, tY, tU, block=None, chol_jitter=1e-3))
+    assert e0 != e1
+
+
 @pytest.mark.parametrize("ladder", [True, False])
 def test_compute_whitenings_match_jax(carried, ladder):
     cfg, tcfg, jp, tp, (Y, U, _), (tY, tU, _) = carried
