@@ -41,8 +41,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    |e32-e64|/(1+|e64|) < 1e-3 at M=32 and a 64-step freerun trajectory
    rms/scale < 5e-2 at M=16.
 5. Train config 1 in float32 on the card (``rgp_tpu_torch.bench.config1``):
-   Adam on -elbo, cosine decay to 1%, whitening refresh every 100 steps, 1000
-   steps timed after a 20-step warm-up. Counted over the timed call: K2 runs
+   Adam on -elbo, cosine decay to 1%, whitening refresh every 100 steps, 500
+   steps (``bench.py`` runs 1000; cut to fit phase 10) timed after a 20-step
+   warm-up. Counted over the timed call: K2 runs
    2 per step, K1 at least 2 per step, the plain Psi2 path never. Every loss
    is finite and the last ELBO is above the first. Print iterations/s, ms per
    step and the trained freerun RMSE beside the zero predictor's, and profile
@@ -66,15 +67,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    step, the freerun RMSE beside the zero predictor's and the degeneracy
    flags, and time and profile 10 more steps of that loss from the trained
    point (device busy share, device ops per step). Config 3: ``gp_narx``
-   and ``gp_narx_matern`` on actuator at M=50, 1000 steps each: every loss
+   and ``gp_narx_matern`` on actuator at M=50, 300 steps each (``all.py``'s
+   rows run 1000; cut to fit phase 10): every loss
    finite, the ELBO rises; print it/s, the first and last ELBO, the RMSE
    beside the zero predictor's and the flags; then time and profile 10
    steady ``gp_narx`` steps in the same way.
 8. Config 4 in float32 through the harness on ``long_corpus`` at full width
    (T=16384: a NARX design of 12278 x 15, ``y_win`` 10, ``u_win`` 5, M=100,
-   batch 512): ``gp_narx_collapsed`` and ``svgp_natgrad`` at 1000 steps
-   (``rgp_tpu/bench/all.py``'s quick budget), ``svgp_natgrad_collapsed``,
-   ``gp_narx_minibatch`` and ``gp_narx_minibatch_ema`` cut to 300. Certain
+   batch 512): the five routes at 300 steps each (``rgp_tpu/bench/all.py``'s
+   quick budget runs ``gp_narx_collapsed`` and ``svgp_natgrad`` at 1000; cut
+   to fit phase 10). Certain
    inputs: over the five runs K1 and K2 launch 0 times and the plain Psi2 path
    is never taken. Every route but the EMA one (recorded as diverging in
    BASELINE.md) must have finite losses, a last ELBO above the first and a
@@ -109,8 +111,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    twice the plain float32 route's own. Per route: ms per batched
    value-and-gradient, device ops and busy share, launches, peak memory.
    9b. The NUTS twin (``rgp_tpu_torch.bench.sampling.bench_nuts``) at
-   ``rgp_tpu/bench/all.py``'s quick budget (128 chains, 24 warmup steps, 8
-   draws) with the JAX protocol (``scan``): every draw finite, every group's
+   half ``rgp_tpu/bench/all.py``'s quick budget (128 chains, 12 warmup steps,
+   4 draws; the quick budget's 24 and 8 cut to fit phase 10) with the JAX
+   protocol (``scan``): every draw finite, every group's
    final step size at least 1e-2 (a collapsed step size is the death-spiral
    signature), K2 never launched and K1 only by the frozen whitening's ladder
    pass at the anchor (one per layer). Printed, not gated: the twin's JSON
@@ -125,6 +128,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    9d. The SMC twin (``bench_smc``, 1024 particles over the 512 test steps of
    the flagship fitted for 300 steps): a finite log-marginal and every step's
    ESS above 0; steps/s, the log-marginal and the mean ESS fraction printed.
+10. Tempered SMC and the examples, float32, on the same anchor.
+   10a. One batched tempered log-likelihood (``sample.api.make_rgp_loglik``:
+   ``rgp.elbo`` with the default jitter and a fresh laddered whitening) at 512
+   particles drawn from ``sample_tempered``'s prior (std 3 about the
+   anchor), on both routes: ``auto`` must launch K1 exactly once per particle
+   per layer (1024) with no K2 and no plain path, ``scan`` (block 32) no K1.
+   Per route: ms a call, device ops, busy share, peak memory. The routes are
+   held against float64 (plain) at 16 particles and against each other at
+   512 under phase 9a's rule, in relative gaps |x - e64| / (1 + |e64|) (the
+   prior's draws reach ELBOs of -1e6): the plain route's median gap within
+   the f32 lane's 1e-3, the kernel route's worst gap at most twice the plain
+   route's, and the median auto-against-scan gap at most twice the plain
+   route's median gap to float64. A particle whose two routes part by more,
+   or are not both finite, is printed with each layer's ladder rung on each
+   route.
+   10b. ``sample_tempered`` at 512 particles with the reference's defaults
+   (50 stages, ESS target 0.5, 3 moves, step scale 0.5): K1 exactly 1024 per
+   log-likelihood evaluation, no K2, no plain path; log Z finite, the beta
+   schedule increasing to ``beta_final`` (a truncation below 1 is printed,
+   not failed), 0 < accept <= 1, every particle finite, and the ELBO at the
+   particle mean no more than 50 nats below the anchor's. Printed: log Z,
+   stages, accept, wall seconds, evaluations and particle-evaluations per
+   second.
+   10c. The five example scripts (``rgp_tpu_torch.examples``) in this
+   process on the card at the cut sizes of ``_EXAMPLES``: each must print its
+   JSON line; wall seconds and launch counts printed.
 
 Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -145,7 +174,7 @@ import torch
 _GOLDEN_E0 = -5946.347076392082  # tests/test_golden_regression.py
 _GOLDEN_TRAJ = {0: -5946.347076393514, 9: -3795.857900524881, 24: -2375.0372891290613,
                 49: -1293.6259234232734}
-_TRAIN_STEPS = 1000
+_TRAIN_STEPS = 500  # cut from bench.py's 1000 to fit phase 10 in the run's 1200 s
 _FP32_OPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores
 _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # config 1's layers, a ragged shape, a production shape, then config 2's
@@ -153,12 +182,13 @@ _HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # (250, 100, 1))
 _K1_SHAPES = [(512, 100, 20), (512, 100, 1), (65, 130, 5), (2048, 256, 32), (250, 100, 16), (250, 100, 12)]
 _CONFIG2_STEPS = 300  # rgp_tpu/bench/all.py's quick sweep
-_CONFIG3_STEPS = 1000  # rgp_tpu/bench/all.py's config-3 rows
+_CONFIG3_STEPS = 300  # cut from rgp_tpu/bench/all.py's 1000 (config-3 rows) to fit phase 10
 # shapes whose K2 columns do not fit in shared memory: the kernel streams them
 _K2_STREAM_SHAPES = [(40, 600, 128), (24, 1200, 20)]
-# config 4's routes and steps: rgp_tpu/bench/all.py's quick budget (1000) for
-# the exact route and the named SVGP route, the other three cut to 300
-_C4_ROUTES = {"gp_narx_collapsed": 1000, "svgp_natgrad": 1000, "svgp_natgrad_collapsed": 300,
+# config 4's routes and steps: all five at 300 (rgp_tpu/bench/all.py's quick
+# budget runs the exact route and the named SVGP route at 1000; cut to fit
+# phase 10)
+_C4_ROUTES = {"gp_narx_collapsed": 300, "svgp_natgrad": 300, "svgp_natgrad_collapsed": 300,
               "gp_narx_minibatch": 300, "gp_narx_minibatch_ema": 300}
 _C4_BATCH = 512  # rgp_tpu/bench/harness.py's default
 _C4_TIMED_FREERUNS = ("gp_narx_collapsed", "svgp_natgrad")
@@ -169,8 +199,18 @@ _C5_TPU_DRAWS = "artifacts/pcheck_tpu_r5.npz"  # (256 chains, 64 draws, 25): the
 _C5_CPU_DRAWS = "artifacts/pcheck_cpu_r5.npz"  # (4, 400, 25): the f64 fresh-basis chain, another surrogate
 _C5_U_ANCHOR = -13.3  # U_f64_frozen at the anchor, artifacts/surrogate_check_r5.json (2 decimals)
 _C5_CHAINS = 128
-_C5_WARMUP, _C5_DRAWS = 24, 8  # rgp_tpu/bench/all.py:35's quick budget
+_C5_WARMUP, _C5_DRAWS = 12, 4  # half rgp_tpu/bench/all.py:35's quick budget (24, 8), to fit phase 10
 _C5_SMC_PARTICLES = 1024  # rgp_tpu/bench/all.py:128
+_C5_TEMPERED_PARTICLES = 512  # sample_tempered's default
+_C5_PRIOR_STD = 3.0  # sample_tempered's default prior, centred on the anchor
+# the five examples at cut sizes (their defaults train for thousands of steps)
+_EXAMPLES = [
+    ("actuator_rgp", ["--iters", "200"]),
+    ("drives_deep_rgp", ["--iters", "200", "--back-cstr"]),
+    ("minibatch_svgp", ["--iters", "200"]),
+    ("nuts_smc_demo", ["--iters", "200", "--samples", "2", "--warmup", "4"]),
+    ("evidence_tempered_smc", ["--iters", "200", "--particles", "256"]),
+]
 
 
 def fail(msg):
@@ -215,30 +255,41 @@ def bit_identical(a, b):
     return bool(torch.equal(a, b))
 
 
+def _card_events(prof):
+    """{kernel or copy name: (device us, count)} of a torch.profiler trace,
+    summed from its recorded events (``kineto_results``), user annotations
+    left out (one spans kernels that are counted on their own)."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", bool)():
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    return by_name
+
+
 def profile_device(fn, label, steps):
     """One profiled call of ``fn``: device busy time (the sum of CUDA kernel
     and copy time from torch.profiler, user annotations left out) against the
-    host wall time of the call, and the kernels launched. Profiling slows the
-    host side, so the busy share here is a lower bound on the unprofiled
+    host wall time of the call, and the kernels launched. Only the card's
+    activity is traced, and its events are summed as the profiler recorded
+    them (:func:`_card_events`), without the per-event Python objects that
+    ``key_averages()`` builds (minutes at 10^5 device ops a call).
+    :func:`profile_readings` sets the two readings side by side. Profiling
+    slows the host side, so the busy share here is a lower bound on the unprofiled
     one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, n_kernels, top = 0.0, 0, []
-    for e in prof.key_averages():
-        # a user annotation (e.g. "Optimizer.step#Adam.step") spans kernels
-        # that are counted on their own: counting it too would count them twice
-        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            busy_us += e.self_device_time_total
-            n_kernels += e.count
-            top.append((e.self_device_time_total, e.count, e.key[:60]))
-    top.sort(reverse=True)
+    by_name = _card_events(prof)
+    busy_us = sum(us for us, _ in by_name.values())
+    n_kernels = sum(c for _, c in by_name.values())
+    top = sorted(((us, c, k[:60]) for k, (us, c) in by_name.items()), reverse=True)
     row = {
         "what": label, "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
@@ -247,6 +298,36 @@ def profile_device(fn, label, steps):
         "top_by_device_time": [{"us": t, "count": c, "name": k} for t, c, k in top[:6]],
     }
     print("profile", json.dumps(row))
+    return row
+
+
+def profile_readings(fn, label):
+    """The device ops and busy time of one call of ``fn`` read three ways:
+    ``key_averages()`` of a trace of host and card, :func:`_card_events` of
+    that same trace, and :func:`profile_device` (a trace of the card alone).
+    Printed side by side, so that device op counts read the first way and
+    the last can be compared."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            ops += e.count
+            busy_us += e.self_device_time_total
+    events = _card_events(prof).values()
+    card_only = profile_device(fn, label, 1)
+    row = {"what": label,
+           "key_averages_host_and_card": {"device_ops": ops, "device_busy_ms": busy_us / 1e3},
+           "events_host_and_card": {"device_ops": sum(c for _, c in events),
+                                    "device_busy_ms": sum(us for us, _ in events) / 1e3},
+           "events_card_only": {"device_ops": card_only["device_ops"],
+                                "device_busy_ms": card_only["device_busy_ms"]}}
+    print("profile readings", json.dumps(row))
     return row
 
 
@@ -486,7 +567,7 @@ def phase_serving(psi2, psi_stats):
         freerun_ms = time_host_ms(lambda: rgp.freerun(cfg, params, Y, U, Ut), n=3)
         predict_ms = time_host_ms(lambda: rgp.predict_train(cfg, params, Y, U), n=10)
         profile_device(lambda: rgp.freerun(cfg, params, Y, U, Ut), "freerun", int(T_star))
-        profile_device(lambda: rgp.predict_train(cfg, params, Y, U), "predict_train", 1)
+        profile_readings(lambda: rgp.predict_train(cfg, params, Y, U), "predict_train")
     serving = {
         "config": "rgp1L_actuator_M100 float32 (init point, untrained)",
         "freerun_rmse": rmse, "zero_predictor_rmse": zero_rmse,
@@ -985,7 +1066,7 @@ def phase_config5_potential(psi2, psi_stats, root, card):
 
 
 def phase_config5_nuts(psi2, psi_stats, root, card):
-    """Phase 9b: the NUTS twin at the quick budget, the JAX protocol."""
+    """Phase 9b: the NUTS twin at half the quick budget, the JAX protocol."""
     from rgp_tpu_torch.bench.posterior_check import compare_draws
     from rgp_tpu_torch.bench.sampling import bench_nuts
 
@@ -1041,6 +1122,330 @@ def phase_config5_smc(card):
     check(bool(torch.isfinite(res.log_marginal)), f"config 5 SMC: log-marginal {float(res.log_marginal)}")
     check(bool((res.ess_history > 0).all()), "config 5 SMC: a step's ESS is 0")
     return rec
+
+
+def _tempered_particles(flat0, n, seed=0):
+    """``n`` draws from ``sample_tempered``'s prior: N(flat0, 3^2), on a
+    generator on the card."""
+    gen = torch.Generator(device=flat0.device).manual_seed(seed)
+    return flat0[None, :] + _C5_PRIOR_STD * torch.randn((n, flat0.shape[0]), generator=gen, dtype=flat0.dtype,
+                                                         device=flat0.device)
+
+
+def _ladder_rung(wh):
+    """The floor ladder's rung behind the whitening ``wh`` as a 0-d tensor (0,
+    1 or 2 for the spectral floor times 1, 1e3, 1e6), read off the basis:
+    where the floor clamps the spectrum, lambda_eff's smallest over its
+    largest is the floor. -1 where it clamps nothing. Tensor dataflow only, so
+    it runs under ``torch.func.vmap``."""
+    from rgp_tpu_torch.inference.collapsed_vi import default_spectral_floor
+
+    lam_eff = 1.0 / (wh.W * wh.W).sum(0)
+    rung = torch.round(torch.log10(lam_eff.min() / lam_eff.max() / default_spectral_floor(wh.W.dtype)) / 3.0)
+    return torch.where((wh.topup > 0).any(), rung, torch.full_like(rung, -1.0))
+
+
+def _batched_rungs(cfg, params, Y, U, V, route, block=32):
+    """One batched tempered log-likelihood of the particles ``V`` on a route
+    (``auto`` reads Psi2 from K1, ``scan`` from the plain path summed in
+    chunks of ``block`` time steps), with the
+    rung each ladder took for each particle in that batch: per layer, the
+    whitening's floor rung (see :func:`_ladder_rung`), then the jitter rungs
+    (0, 3, 7 for the base jitter times 1, 1e3, 1e7) of its two Cholesky
+    factorizations, Kt's and Ct's. The ladders are read by spies put in
+    place of ``whitening_basis`` and ``jitchol`` in ``collapsed_vi``, where
+    the bound looks them up. Returns (values (N,), rungs (N, 3 x layers))."""
+    from rgp_tpu_torch import linalg
+    from rgp_tpu_torch.inference import collapsed_vi
+    from rgp_tpu_torch.sample.api import _hyper_elbo
+
+    records = []
+    basis, chol = collapsed_vi.whitening_basis, collapsed_vi.jitchol
+
+    def spy_basis(*args, **kw):
+        wh = basis(*args, **kw)
+        records.append(_ladder_rung(wh))
+        return wh
+
+    def spy_chol(A, jitter0=1e-6):
+        L, jitter = linalg.jitchol_with_jitter(A, jitter0)
+        scale = torch.clamp(torch.diagonal(A).mean(), min=1e-30)
+        records.append(torch.round(torch.log10(jitter / (jitter0 * scale))))
+        return L
+
+    hyper_elbo = _hyper_elbo(cfg, params, Y, U, block=None if route == "auto" else block, psi_prefer=route)[0]
+    n_rungs = 3 * (cfg.n_hidden + 1)
+
+    def one(v):
+        records.clear()
+        value = hyper_elbo(v, False)
+        check(len(records) == n_rungs, f"the rung spies read {len(records)} ladders, want {n_rungs}: the bound "
+              f"no longer looks up whitening_basis and jitchol in collapsed_vi")
+        return value, torch.stack(records)
+
+    collapsed_vi.whitening_basis, collapsed_vi.jitchol = spy_basis, spy_chol
+    try:
+        with torch.no_grad():
+            return torch.func.vmap(one)(V)
+    finally:
+        collapsed_vi.whitening_basis, collapsed_vi.jitchol = basis, chol
+
+
+def _psi2_batch(cfg, params, Y, U, unravel, V, route):
+    """Each layer's Psi2 time sum at every particle of ``V`` on a route,
+    batched as the log-likelihood batches it: a tuple of (N, M, M)."""
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.sample.api import merge_hypers
+
+    def one(v):
+        p = merge_hypers(params, unravel(v))
+        return tuple(stats.psi2 for _, _, stats, *_ in
+                     rgp._layer_stats(cfg, p, Y, U, None if route == "auto" else 32, route, False))
+
+    with torch.no_grad():
+        return torch.func.vmap(one)(V)
+
+
+def _psi2_worst(psi2_32, psi2_64, rel=2e-4, rel_max=2e-5):
+    """Per particle and layer, the worst |x - x64| over ``_within``'s
+    tolerance rel |x64| + rel_max max|x64| (inf where x is not finite):
+    (N, layers)."""
+    cols = []
+    for a, b in zip(psi2_32, psi2_64):
+        tol = rel * b.abs() + rel_max * b.abs().amax((1, 2), keepdim=True)
+        worst = ((a.double() - b).abs() / tol.clamp(min=1e-300)).amax((1, 2))
+        cols.append(torch.where(torch.isfinite(a).flatten(1).all(1), worst, torch.full_like(worst, math.inf)))
+    return torch.stack(cols, 1)
+
+
+def phase_tempered_loglik(psi2, psi_stats, root, card):
+    """Phase 10a: one batched tempered log-likelihood at 512 particles from
+    ``sample_tempered``'s prior around the anchor, on both Psi2 routes
+    (float32), held against each other and against float64 at every
+    particle. Returns the launch counts of the ``auto`` route's call."""
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.params import leaves_with_paths, positive, with_leaves
+    from rgp_tpu_torch.sample.api import make_rgp_loglik
+
+    anchor = os.path.join(root, _C5_ANCHOR)
+    cfg, p32, Y32, U32, _, _ = _flagship(0, torch.float32, anchor)
+    n_layers = cfg.n_hidden + 1
+    out, counts, rows = {}, {}, {}
+    for route in ("auto", "scan"):
+        loglik, flat0, unravel = make_rgp_loglik(cfg, p32, Y32, U32, psi_prefer=route,
+                                                 block=None if route == "auto" else 32)
+        V = _tempered_particles(flat0, _C5_TEMPERED_PARTICLES)  # the same draws on both routes
+        loglik(V)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _c5_zero(psi2, psi_stats)
+        out[route] = loglik(V)
+        torch.cuda.synchronize()
+        counts[route] = _c5_counts(psi2, psi_stats)
+        peak = torch.cuda.max_memory_allocated()
+        ms = time_host_ms(lambda: loglik(V), n=3)
+        prof = profile_device(lambda: loglik(V), f"tempered loglik {route}", 1)
+        rows[route] = {"route": route, "particles": _C5_TEMPERED_PARTICLES, "launches": counts[route],
+                       "ms_per_call": ms, "device_ops": prof["device_ops"],
+                       "device_busy_share": prof["device_busy_share"], "peak_memory_bytes": peak,
+                       "non_finite": int((~torch.isfinite(out[route])).sum()), "card": card}
+        print("tempered loglik", json.dumps(rows[route]))
+        del loglik
+        torch.cuda.empty_cache()
+    check(counts["auto"] == {"k1": n_layers * _C5_TEMPERED_PARTICLES, "k2": 0, "plain_psi2_calls": 0},
+          f"tempered loglik auto at {_C5_TEMPERED_PARTICLES} particles: launches {counts['auto']}, want one K1 per "
+          f"particle per layer, no K2 and no plain path")
+    check(counts["scan"]["k1"] == 0 and counts["scan"]["k2"] == 0 and counts["scan"]["plain_psi2_calls"] > 0,
+          f"tempered loglik scan: launches {counts['scan']}, want the plain path only")
+
+    # Every particle again, on both float32 routes and on the plain route in
+    # float64 at the same float32 inputs (the anchor and the draws widened, so
+    # that only the arithmetic differs), with the rungs each ladder took. The
+    # float32 rung passes must give the timed calls' bits. Where all three
+    # take the same rungs, the float32 routes evaluate float64's regularized
+    # model and are held to it. The prior's draws reach ELBOs of -1e6, where
+    # float32 is tens of nats off float64, so the gaps are relative,
+    # |x - e64| / (1 + |e64|) as in the repo's f32-lane gate, under phase 9a's
+    # rule: the plain float32 route's median gap within the lane's 1e-3, and
+    # its gaps the yardstick of the kernel route's over the same particles.
+    # Near a rung's edge the factor at that rung is near-singular in float32,
+    # so even there a route's value follows the rounding of Psi2 by up to a
+    # few tenths relative. A particle whose rungs differ evaluates another
+    # model (float32 rounding decides a trial Cholesky), a cliff of up to
+    # thousands of nats: it is counted and printed, and K1's Psi2 is held to
+    # float64 there as at every other particle.
+    p64 = with_leaves(p32, [x.double() for _, x in leaves_with_paths(p32)])
+    Y64, U64 = Y32.double(), U32.double()
+    _, _, unravel64 = make_rgp_loglik(cfg, p64, Y64, U64, psi_prefer="scan", block=32)
+    batch, rungs = {}, {}
+    for route in out:
+        batch[route], rungs[route] = _batched_rungs(cfg, p32, Y32, U32, V, route)
+    e64, rungs["f64"] = _batched_rungs(cfg, p64, Y64, U64, V.double(), "scan")
+    # the plain route again with another order of the same float32 sum (time
+    # chunks of 64), to show how far rounding order alone moves the bound
+    scan64, rungs["scan_block64"] = _batched_rungs(cfg, p32, Y32, U32, V, "scan", block=64)
+    torch.cuda.empty_cache()
+    same_bits = {route: bool(torch.equal(batch[route], out[route])) for route in out}
+    route_flip = (rungs["auto"] != rungs["scan"]).any(1)
+    dtype_flip = (rungs["scan"] != rungs["f64"]).any(1)
+    ok64 = torch.isfinite(e64)
+    same = ok64 & ~route_flip & ~dtype_flip
+    same_order = same & (rungs["scan_block64"] == rungs["scan"]).all(1)
+    rel = {route: (batch[route].double() - e64).abs() / (1.0 + e64.abs()) for route in out}
+    gap = (batch["auto"].double() - batch["scan"].double()).abs() / (1.0 + batch["scan"].double().abs())
+    gap_order = (scan64.double() - batch["scan"].double()).abs() / (1.0 + batch["scan"].double().abs())
+
+    # K1's Psi2 at every particle against the plain float64 Psi2, in units of
+    # K1's tolerance. Lengthscales of e^-6 from the prior amplify float32
+    # rounding past that tolerance on the plain path too, so the plain
+    # float32 Psi2 is the yardstick, particle by particle as phase 9a's rule
+    # holds a route: K1 within twice its error, or within the tolerance
+    psi2_64 = _psi2_batch(cfg, p64, Y64, U64, unravel64, V.double(), "scan")
+    k1_worst = _psi2_worst(_psi2_batch(cfg, p32, Y32, U32, unravel, V, "auto"), psi2_64)
+    plain_worst = _psi2_worst(_psi2_batch(cfg, p32, Y32, U32, unravel, V, "scan"), psi2_64)
+    del psi2_64
+    torch.cuda.empty_cache()
+
+    def detail(i):
+        hyp = unravel64(V[i].double())
+        betas = [float(1.0 / positive(rgp._fln(cfg, h["log_noise"])))
+                 for h in [*hyp["layers"], hyp["out"]]]
+        return {"particle": i, "auto": float(batch["auto"][i]), "scan": float(batch["scan"][i]),
+                "scan_block64": float(scan64[i]), "f64": float(e64[i]),
+                "rungs_auto": rungs["auto"][i].int().tolist(),
+                "rungs_scan": rungs["scan"][i].int().tolist(),
+                "rungs_scan_block64": rungs["scan_block64"][i].int().tolist(), "rungs_f64": rungs["f64"][i].int().tolist(),
+                "beta_per_layer": betas, "k1_psi2_worst_err_over_tol": k1_worst[i].tolist(),
+                "plain_psi2_worst_err_over_tol": plain_worst[i].tolist()}
+
+    def argmax_at(x, mask):
+        return int(torch.where(mask, x, torch.full_like(x, -1.0)).argmax())
+
+    yard = float(rel["scan"][same].max())
+    row = {"particles": _C5_TEMPERED_PARTICLES, "f64_finite": int(ok64.sum()),
+           "value_f64_range": [float(e64[ok64].min()), float(e64[ok64].max())],
+           "rung_pass_gives_the_same_bits": same_bits,
+           "route_flips": int(route_flip.sum()), "f32_f64_flips": int((dtype_flip & ~route_flip).sum()),
+           "same_rungs": int(same.sum()),
+           "scan_vs_f64_rel": {"max_same_rungs": yard, "median": float(rel["scan"][ok64].median()),
+                               "max": float(rel["scan"][ok64].max())},
+           "auto_vs_f64_rel": {"max_same_rungs": float(rel["auto"][same].max()),
+                               "median": float(rel["auto"][ok64].median()), "max": float(rel["auto"][ok64].max())},
+           "auto_vs_scan_rel": {"max_same_rungs": float(gap[same].max()),
+                                "median": float(gap[torch.isfinite(gap)].median())},
+           "scan_block64_vs_scan_rel": {"same_rungs": int(same_order.sum()),
+                                        "max_same_rungs": float(gap_order[same_order].max()),
+                                        "median": float(gap_order[torch.isfinite(gap_order)].median())},
+           "k1_psi2_vs_f64_worst_err_over_tol": float(k1_worst.max()),
+           "plain_psi2_vs_f64_worst_err_over_tol": float(plain_worst.max()),
+           "k1_psi2_over_yardstick": float((k1_worst / torch.clamp(2.0 * plain_worst, min=1.0)).max()),
+           "plain_psi2_beyond_tol_particles": int((plain_worst > 1.0).any(1).sum()),
+           "card": card}
+    print("tempered loglik vs f64", json.dumps(row))
+    for what, i in (("worst scan vs f64, same rungs", argmax_at(rel["scan"], same)),
+                    ("worst auto vs f64, same rungs", argmax_at(rel["auto"], same)),
+                    ("worst auto vs scan, same rungs", argmax_at(gap, same)),
+                    ("worst scan block 64 vs scan, same rungs", argmax_at(gap_order, same_order)),
+                    ("worst scan vs f64", argmax_at(rel["scan"], ok64))):
+        print("tempered loglik worst", json.dumps({"what": what, **detail(i)}))
+    for i in torch.nonzero(route_flip).flatten().tolist():
+        print("tempered loglik flip", json.dumps(detail(i)))
+    check(all(same_bits.values()), f"the rung passes do not give the timed calls' values: {same_bits}")
+    check(int(ok64.sum()) == _C5_TEMPERED_PARTICLES,
+          f"the float64 tempered log-likelihood is not finite at {_C5_TEMPERED_PARTICLES - int(ok64.sum())} "
+          f"of {_C5_TEMPERED_PARTICLES} particles")
+    k1_over = (k1_worst / torch.clamp(2.0 * plain_worst, min=1.0)).amax(1)
+    check(row["k1_psi2_over_yardstick"] <= 1.0,
+          f"K1's Psi2 is off the float64 plain Psi2 at particle {int(k1_over.argmax())}: "
+          f"{detail(int(k1_over.argmax()))}, beyond twice the plain float32 Psi2's error and K1's tolerance")
+    check(row["scan_vs_f64_rel"]["median"] <= 1e-3,
+          f"plain float32 tempered log-likelihood: median relative gap {row['scan_vs_f64_rel']['median']} to "
+          f"float64 (gate 1e-3)")
+    check(row["auto_vs_f64_rel"]["median"] <= 2.0 * row["scan_vs_f64_rel"]["median"],
+          f"auto tempered log-likelihood: median relative gap {row['auto_vs_f64_rel']['median']} to float64, "
+          f"above twice the plain float32 route's {row['scan_vs_f64_rel']['median']}")
+    check(row["auto_vs_f64_rel"]["max_same_rungs"] <= 2.0 * yard,
+          f"auto tempered log-likelihood: relative gap {row['auto_vs_f64_rel']['max_same_rungs']} to float64 "
+          f"where every route takes float64's rungs, above twice the plain float32 route's {yard} there")
+    check(row["auto_vs_scan_rel"]["median"] <= 2.0 * row["scan_vs_f64_rel"]["median"],
+          f"auto against scan at {_C5_TEMPERED_PARTICLES} particles: median relative gap "
+          f"{row['auto_vs_scan_rel']['median']}, above twice the plain route's median gap to float64")
+    return counts["auto"], rows
+
+
+def phase_tempered_smc(psi2, psi_stats, root, card):
+    """Phase 10b: ``sample_tempered`` at 512 particles with the reference's
+    defaults on the anchor (float32, K1 through the vmap rule). Returns the
+    launch counts."""
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.sample.api import merge_hypers, sample_tempered
+
+    cfg, params, Y, U, _, _ = _flagship(0, torch.float32, os.path.join(root, _C5_ANCHOR))
+    n_layers = cfg.n_hidden + 1
+    gen = torch.Generator(device=Y.device).manual_seed(0)
+    _c5_zero(psi2, psi_stats)
+    t0 = time.perf_counter()
+    res, unravel = sample_tempered(cfg, params, Y, U, gen, n_particles=_C5_TEMPERED_PARTICLES,
+                                   prior_std=_C5_PRIOR_STD, max_stages=50, ess_target=0.5, n_moves=3,
+                                   step_scale=0.5)
+    log_z = float(res.log_Z)  # the host read that ends the run
+    wall = time.perf_counter() - t0
+    counts = _c5_counts(psi2, psi_stats)
+    evals = 1 + 3 * res.n_stages
+    with torch.no_grad():
+        e_anchor = float(rgp.elbo(cfg, params, Y, U, block=None))
+        e_mean = float(rgp.elbo(cfg, merge_hypers(params, unravel(res.particles.mean(0))), Y, U, block=None))
+    betas = res.betas[:res.n_stages].double().cpu()
+    beta_final = float(res.beta_final)
+    row = {"particles": _C5_TEMPERED_PARTICLES, "max_stages": 50, "ess_target": 0.5, "n_moves": 3,
+           "step_scale": 0.5, "prior_std": _C5_PRIOR_STD, "log_Z": log_z, "n_stages": res.n_stages,
+           "beta_final": beta_final, "truncated": beta_final < 1.0, "accept_rate": float(res.accept_rate),
+           "wall_seconds": wall, "loglik_evaluations": evals, "evaluations_per_s": evals / wall,
+           "particle_evaluations_per_s": evals * _C5_TEMPERED_PARTICLES / wall, "launches": counts,
+           "elbo_anchor": e_anchor, "elbo_at_particle_mean": e_mean,
+           "betas_head": betas[:5].tolist(), "card": card}
+    print("tempered smc", json.dumps(row))
+    if row["truncated"]:
+        print(f"tempered smc: TRUNCATED at beta={beta_final:.6g} after {res.n_stages} stages; log_Z covers the "
+              f"anneal up to it")
+    check(counts == {"k1": n_layers * _C5_TEMPERED_PARTICLES * evals, "k2": 0, "plain_psi2_calls": 0},
+          f"sample_tempered: launches {counts}, want {n_layers * _C5_TEMPERED_PARTICLES} K1 per evaluation "
+          f"({evals}), no K2 and no plain path")
+    check(math.isfinite(log_z), f"sample_tempered: log_Z {log_z}")
+    check(res.n_stages >= 1 and bool((torch.diff(torch.cat([betas.new_zeros(1), betas])) > 0).all())
+          and float(betas[-1]) == beta_final, f"sample_tempered: the beta schedule is not increasing: {betas}")
+    check(0.0 < row["accept_rate"] <= 1.0, f"sample_tempered: accept rate {row['accept_rate']}")
+    check(bool(torch.isfinite(res.particles).all()), "sample_tempered: a particle is not finite")
+    check(e_mean > e_anchor - 50.0, f"sample_tempered: the ELBO at the particle mean {e_mean} is more than 50 nats "
+          f"below the anchor's {e_anchor}")
+    return counts
+
+
+def phase_examples(psi2, psi_stats, card):
+    """Phase 10c: the five example scripts in this process on the card, each
+    at the cut size printed; each must print its JSON line."""
+    import contextlib
+    import importlib
+    import io
+
+    rows = {}
+    for name, argv in _EXAMPLES:
+        mod = importlib.import_module(f"rgp_tpu_torch.examples.{name}")
+        _c5_zero(psi2, psi_stats)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            record = mod.main(argv)
+        wall = time.perf_counter() - t0
+        printed = buf.getvalue().strip().splitlines()
+        check(bool(printed) and json.loads(printed[-1]) == json.loads(json.dumps(record)),
+              f"example {name} did not print its JSON line")
+        rows[name] = {"argv": argv, "wall_seconds": wall, "launches": _c5_counts(psi2, psi_stats),
+                      "printed": printed, "card": card}
+        print("example", json.dumps(rows[name]))
+    return rows
 
 
 def ptxas_report(log):
@@ -1121,6 +1526,11 @@ def main():
     c5_sample = timed("9c (config 5 sample_nuts)", phase_config5_sample_nuts, psi2, psi_stats, root, card)
     timed("9d (config 5 SMC twin)", phase_config5_smc, card)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s wall")
+    t10 = time.perf_counter()
+    tempered_ll, _ = timed("10a (tempered log-likelihood)", phase_tempered_loglik, psi2, psi_stats, root, card)
+    tempered = timed("10b (sample_tempered)", phase_tempered_smc, psi2, psi_stats, root, card)
+    timed("10c (examples)", phase_examples, psi2, psi_stats, card)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s wall")
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
@@ -1143,12 +1553,14 @@ def main():
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
             {"training": training["k1"], "serving": serving, "config2_training": config2["k1"],
              "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"],
-             "config5_potential_auto": c5_potential["k1"], "config5_sample_nuts_4chains": c5_sample["k1"]}, k1_rows),
+             "config5_potential_auto": c5_potential["k1"], "config5_sample_nuts_4chains": c5_sample["k1"],
+             "tempered_loglik_auto": tempered_ll["k1"], "tempered_smc": tempered["k1"]}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
             {"training": training["k2"], "serving": 0, "config2_training": config2["k2"],
              "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"],
-             "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"]}, k2_rows),
+             "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"],
+             "tempered_loglik_auto": tempered_ll["k2"], "tempered_smc": tempered["k2"]}, k2_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

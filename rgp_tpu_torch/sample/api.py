@@ -11,6 +11,11 @@ and the prior N(0, prior_std^2) placed directly on the unconstrained
 parameters (so no Jacobian term: the VI bound stands in for the marginal
 likelihood, as in the reference's HMC).
 
+``sample_tempered(cfg, params, Y, U, generator, ...)``: adaptive-tempering
+SMC from a Gaussian prior on the hyperparameters to the ELBO surrogate
+posterior, with a log-evidence estimate for model comparison; its batched
+log-likelihood is :func:`make_rgp_loglik`.
+
 ``smc(cfg, params, ...)``: a particle filter over latent trajectories of the
 trained model (:func:`rgp_tpu_torch.models.rgp_smc.make_ssm`).
 
@@ -24,6 +29,7 @@ rule of :class:`rgp_tpu_torch.ops.cuda.psi2.RBFPsi2Sum`).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,6 +39,7 @@ from ..params import leaves_with_paths, ravel, with_leaves
 from .hmc import hmc_sample
 from .nuts import NUTSResult, nuts_sample
 from .smc import SMCResult, smc_filter
+from .tempered import smc_tempered
 
 __all__ = [
     "split_hypers",
@@ -41,6 +48,8 @@ __all__ = [
     "hessian_diagonal",
     "sample_nuts",
     "sample_hmc",
+    "make_rgp_loglik",
+    "sample_tempered",
     "smc",
 ]
 
@@ -63,6 +72,30 @@ def merge_hypers(params, hyper):
               for lp, h in zip(params["layers"], hyper["layers"])]
     out = {**params["out"], "kern": hyper["out"]["kern"], "log_noise": hyper["out"]["log_noise"]}
     return {**params, "layers": layers, "out": out}
+
+
+def _hyper_elbo(cfg, params, Y, U, *, block, psi_prefer: str, fixed_whitening: bool = False,
+                chol_jitter: Optional[float] = None, fresh_ladder: bool = True):
+    """-> (hyper_elbo(v, remat), flat0, unravel): ``rgp.elbo`` at ``params``
+    with the hyperparameters replaced by the flat vector ``v`` (dim,). Pass
+    ``remat=False`` under ``torch.func.vmap`` (``checkpoint`` cannot run on
+    batched tensors). The whitening options are :func:`make_rgp_potential`'s."""
+    params = with_leaves(params, [x.detach() for _, x in leaves_with_paths(params)])
+    flat0, unravel = ravel(split_hypers(params))
+    wh = None
+    if fixed_whitening:
+        with torch.no_grad():
+            wh = rgp.compute_whitenings(cfg, params, Y, U, block=block)
+
+    def hyper_elbo(v, remat):
+        p = merge_hypers(params, unravel(v))
+        wh_eval = wh
+        if wh_eval is None and not fresh_ladder:
+            wh_eval = rgp.compute_whitenings(cfg, p, Y, U, block=block, ladder=False)
+        return rgp.elbo(cfg, p, Y, U, block=block, psi_prefer=psi_prefer, whitening=wh_eval,
+                        chol_jitter=chol_jitter, psi_remat=remat)
+
+    return hyper_elbo, flat0, unravel
 
 
 def make_rgp_potential(cfg, params, Y, U, *, prior_std: float = 3.0, block=None, psi_prefer: str = "auto",
@@ -92,21 +125,12 @@ def make_rgp_potential(cfg, params, Y, U, *, prior_std: float = 3.0, block=None,
 
     ``psi_prefer``: ``"auto"`` (float32 CUDA through K1/K2) or ``"scan"``
     (the plain chunked path, honouring ``block``)."""
-    params = with_leaves(params, [x.detach() for _, x in leaves_with_paths(params)])
-    flat0, unravel = ravel(split_hypers(params))
-    wh = None
-    if fixed_whitening:
-        with torch.no_grad():
-            wh = rgp.compute_whitenings(cfg, params, Y, U, block=block)
+    hyper_elbo, flat0, unravel = _hyper_elbo(cfg, params, Y, U, block=block, psi_prefer=psi_prefer,
+                                             fixed_whitening=fixed_whitening, chol_jitter=chol_jitter,
+                                             fresh_ladder=fresh_ladder)
 
     def forward(v, remat):
-        p = merge_hypers(params, unravel(v))
-        wh_eval = wh
-        if wh_eval is None and not fresh_ladder:
-            wh_eval = rgp.compute_whitenings(cfg, p, Y, U, block=block, ladder=False)
-        lp = rgp.elbo(cfg, p, Y, U, block=block, psi_prefer=psi_prefer, whitening=wh_eval,
-                      chol_jitter=chol_jitter, psi_remat=remat)
-        return -(lp - 0.5 * ((v / prior_std) ** 2).sum())
+        return -(hyper_elbo(v, remat) - 0.5 * ((v / prior_std) ** 2).sum())
 
     def potential(v):
         return forward(v, True)
@@ -180,6 +204,51 @@ def sample_hmc(cfg, params, Y, U, seed: int, *, prior_std: float = 3.0, psi_pref
     _, flat0, _, batched = make_rgp_potential(cfg, params, Y, U, prior_std=prior_std, psi_prefer=psi_prefer,
                                               block=block, fixed_whitening=fixed_whitening)
     return hmc_sample(batched, flat0, seed, **hmc_kw)
+
+
+def make_rgp_loglik(cfg, params, Y, U, *, psi_prefer: str = "auto", block: Optional[int] = None):
+    """-> (batched log-likelihood (N, dim) -> (N,), flat0, unravel): tempered
+    SMC's likelihood, ``rgp.elbo`` of each hyperparameter vector with the
+    default jitter and a fresh laddered whitening (no prior term), as
+    ``torch.func.vmap`` of one vector's bound run under ``torch.no_grad()``.
+    On float32 CUDA with ``psi_prefer="auto"`` each layer's Psi2 sum is one K1
+    launch per vector (the vmap rule of ``RBFPsi2Sum``); ``"scan"`` takes the
+    plain chunked path at ``block``."""
+    hyper_elbo, flat0, unravel = _hyper_elbo(cfg, params, Y, U, block=block, psi_prefer=psi_prefer)
+    batched = torch.func.vmap(lambda v: hyper_elbo(v, False))
+
+    def loglik(V):
+        with torch.no_grad():
+            return batched(V)
+
+    return loglik, flat0, unravel
+
+
+def sample_tempered(cfg, params, Y, U, generator: torch.Generator, *, n_particles: int = 512,
+                    prior_std: float = 3.0, center_on_fit: bool = True, **tsmc_kw):
+    """Adaptive-tempering SMC from the hyperparameter prior to the (ELBO
+    surrogate) posterior: posterior particles AND a log-evidence estimate
+    log Z = log E_prior[exp(ELBO)] for model comparison. Returns
+    (:class:`~rgp_tpu_torch.sample.tempered.TemperedSMCResult`, unravel).
+
+    The prior is N(mu0, prior_std^2) on the unconstrained hyperparameters,
+    ``mu0`` the fitted ones when ``center_on_fit`` (recommended: a prior
+    centred on zero wastes most particles where the ELBO is astronomically
+    low), else zero. ``generator`` lives on the data's device; ``tsmc_kw`` go
+    to :func:`rgp_tpu_torch.sample.tempered.smc_tempered`."""
+    log_lik, flat0, unravel = make_rgp_loglik(cfg, params, Y, U)
+    mu0 = flat0 if center_on_fit else torch.zeros_like(flat0)
+    dim = flat0.shape[0]
+    log_norm = 0.5 * dim * math.log(2.0 * math.pi * prior_std**2)
+
+    def log_prior(V):
+        return -0.5 * (((V - mu0) / prior_std) ** 2).sum(-1) - log_norm
+
+    def init_sample(gen, N):
+        return mu0[None, :] + prior_std * torch.randn((N, dim), generator=gen, dtype=flat0.dtype,
+                                                      device=flat0.device)
+
+    return smc_tempered(log_prior, log_lik, init_sample, generator, n_particles, **tsmc_kw), unravel
 
 
 def smc(cfg, params, Y_train, U_train, U_test, Y_test, generator: torch.Generator, *, n_particles: int = 1024,

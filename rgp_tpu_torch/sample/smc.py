@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["systematic_resample", "smc_filter", "SMCResult", "ess"]
+__all__ = ["systematic_resample", "resample_at", "smc_filter", "SMCResult", "ess"]
 
 
 def ess(log_w):
@@ -29,10 +29,15 @@ def ess(log_w):
 def systematic_resample(generator: torch.Generator, log_w, n: Optional[int] = None):
     """Systematic (low-variance) resampling: ancestor indices (n,),
     deterministic given the generator's state and ``log_w``."""
+    u0 = torch.rand((), generator=generator, dtype=log_w.dtype, device=log_w.device)
+    return resample_at(log_w, u0, n)
+
+
+def resample_at(log_w, u0, n: Optional[int] = None):
+    """:func:`systematic_resample` at a given uniform ``u0`` (0-d)."""
     N = log_w.shape[0]
     n = N if n is None else n
     cdf = torch.cumsum(torch.softmax(log_w, 0), 0)
-    u0 = torch.rand((), generator=generator, dtype=log_w.dtype, device=log_w.device)
     us = (u0 + torch.arange(n, dtype=log_w.dtype, device=log_w.device)) / n
     return torch.searchsorted(cdf, us, right=True).clamp(max=N - 1)
 

@@ -33,6 +33,16 @@ def test_the_port_has_modules():
     assert len(FILES) > 10
 
 
+@pytest.mark.parametrize("module", [
+    "rgp_tpu_torch/sample/tempered.py", "rgp_tpu_torch/utils/checkpoint.py", "rgp_tpu_torch/utils/metrics.py",
+    "rgp_tpu_torch/utils/profiling.py", "rgp_tpu_torch/utils/plotting.py",
+    "rgp_tpu_torch/examples/evidence_tempered_smc.py", "rgp_tpu_torch/examples/nuts_smc_demo.py",
+])
+def test_scan_covers(module):
+    """utils/, sample/tempered.py and the examples are among the scanned files."""
+    assert ROOT / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_rgp_tpu_import(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]

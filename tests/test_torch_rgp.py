@@ -24,6 +24,7 @@ from rgp_tpu_torch.data import datasets as td
 from rgp_tpu_torch.data import windows as tw
 from rgp_tpu_torch.models import encoder as tenc
 from rgp_tpu_torch.models import rgp as tr
+from rgp_tpu_torch.utils import checkpoint
 
 _GOLDEN_E0 = -5946.347076392082  # tests/test_golden_regression.py
 
@@ -168,8 +169,8 @@ def test_freerun_matches_jax(carried):
 
 @pytest.mark.parametrize("entry", ["init_params", "standardized_tensors", "params_from_jax",
                                    "init_mlp", "RBF.init", "Matern52.init", "StdPeriodic.init",
-                                   "MLP.init", "Sum.init"])
-def test_constructors_do_not_fall_back_to_cpu(entry, carried):
+                                   "MLP.init", "Sum.init", "load_checkpoint"])
+def test_constructors_do_not_fall_back_to_cpu(entry, carried, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None builds there")
     _, tcfg, jp, _, _, (tY, tU, _) = carried
@@ -183,7 +184,10 @@ def test_constructors_do_not_fall_back_to_cpu(entry, carried):
         "StdPeriodic.init": lambda: tk.StdPeriodic(input_dim=2).init(),
         "MLP.init": lambda: tk.MLP(input_dim=2).init(),
         "Sum.init": lambda: (tk.Linear(input_dim=2) + tk.Bias(input_dim=2)).init(),
+        "load_checkpoint": lambda: checkpoint.load_checkpoint(str(tmp_path)),
     }
+    if entry == "load_checkpoint":  # a real checkpoint, so only the device can stop the load
+        checkpoint.save_checkpoint(str(tmp_path), {"x": torch.zeros(2)}, step=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
