@@ -155,12 +155,45 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    process on the card at the cut sizes of ``_EXAMPLES``: each must print its
    JSON line; wall seconds and launch counts printed.
 
+11. The sharded paths (``rgp_tpu_torch.parallel``, ``sample.api.nuts_sharded``
+   and ``smc(..., mesh=)``) on ranks spawned on the card after the kernels
+   are built (each rank loads them from ``build/``). Two ranks share the one
+   card over gloo, whose all-reduce takes CUDA tensors (NCCL refuses two
+   ranks on one device); every number comes back to this process, and a
+   rank that fails or a deadline that passes fails the script. Config 1's
+   width at the anchor.
+   11a. ``sequence_sharded_rgp_elbo``, value and gradients: float64 (plain
+   path) against single-process ``rgp.elbo`` on the card, the value at rtol
+   1e-9 and each leaf's gradient within 1e-8 of its largest; float32 through
+   K1 and K2 (exactly one K1 and one K2 per layer per value-and-gradient per
+   rank, no plain path), its gaps to float64 within twice the larger of the
+   single-process float32 routes' (``scan`` and ``auto``: phase 9a's rule),
+   every ladder rung printed for all three.
+   11b. The same for ``data_parallel_collapsed_elbo`` on the anchor's hidden
+   layer (T=512 over the ranks; one K1 and one K2 a rank) and
+   ``inducing_sharded_collapsed_elbo`` on it (M=100, 50 rows a rank; plain
+   torch, no kernel).
+   11c. 50 sequence-sharded float32 Adam steps from the anchor: the ranks'
+   parameters the same bits at the end, K1 and K2 2 a step a rank; ms a step,
+   device ops a step (rank 0), and single-process ``rgp.elbo`` steps beside.
+   The ranks share the card, so no speedup is expected.
+   11d. ``smc(..., mesh)`` at 1024 particles over the 512 test steps: the
+   ranks agree bit for bit, and the log-marginal is within ``_P11_SMC_RTOL``
+   (1 + |log Z|) of the single-process filter with the same draws; steps/s
+   beside 9d's.
+   11e. ``nuts_sharded`` on config 5's potential (``auto``), 2 x 16 chains, 6
+   warmup steps, 4 draws: the step size and mass the same bits on both
+   ranks, K1 and K2 launched in each; chain steps/s.
+   11f. One rank on NCCL: the float32 sequence-sharded value and gradients
+   under 11a's rule, through the backend's collectives.
+
 Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -203,6 +236,22 @@ _C5_WARMUP, _C5_DRAWS = 12, 4  # half rgp_tpu/bench/all.py:35's quick budget (24
 _C5_SMC_PARTICLES = 1024  # rgp_tpu/bench/all.py:128
 _C5_TEMPERED_PARTICLES = 512  # sample_tempered's default
 _C5_PRIOR_STD = 3.0  # sample_tempered's default prior, centred on the anchor
+# phase 11: the sharded paths on ranks spawned on the one card
+_P11_WORLD = 2  # gloo ranks sharing the card (NCCL refuses two ranks on one device)
+_P11_ADAM_STEPS = 50
+_P11_SMC_PARTICLES = 1024  # phase 9d's
+_P11_NUTS = dict(n_chains=32, n_warmup=6, n_samples=4, max_depth=4)  # 16 chains a rank
+_P11_TIMEOUT = 600.0  # seconds for one spawn of ranks, start-up included
+_P11_PG_TIMEOUT = 300.0  # seconds for one collective
+_P11_F64_RTOL = 1e-9  # float64 sharded value against the single-process one
+_P11_F64_GRAD_RTOL = 1e-8  # float64 gradients, over each leaf's largest
+# float32 log-marginal of the sharded filter against the single-process one
+# with the same draws, relative to 1 + |log Z|. The ranks transition their
+# halves of the particles, which rounds otherwise than the whole batch, and
+# over 512 steps the latent trajectories carry it: 8.4e-6 on an H100 (first
+# run of this phase, ESS up to 4 of 1024 apart). A slicing or draw fault
+# moves it by nats.
+_P11_SMC_RTOL = 1e-4
 # the five examples at cut sizes (their defaults train for thousands of steps)
 _EXAMPLES = [
     ("actuator_rgp", ["--iters", "200"]),
@@ -1145,19 +1194,17 @@ def _ladder_rung(wh):
     return torch.where((wh.topup > 0).any(), rung, torch.full_like(rung, -1.0))
 
 
-def _batched_rungs(cfg, params, Y, U, V, route, block=32):
-    """One batched tempered log-likelihood of the particles ``V`` on a route
-    (``auto`` reads Psi2 from K1, ``scan`` from the plain path summed in
-    chunks of ``block`` time steps), with the
-    rung each ladder took for each particle in that batch: per layer, the
-    whitening's floor rung (see :func:`_ladder_rung`), then the jitter rungs
-    (0, 3, 7 for the base jitter times 1, 1e3, 1e7) of its two Cholesky
-    factorizations, Kt's and Ct's. The ladders are read by spies put in
-    place of ``whitening_basis`` and ``jitchol`` in ``collapsed_vi``, where
-    the bound looks them up. Returns (values (N,), rungs (N, 3 x layers))."""
+@contextlib.contextmanager
+def _rung_spies():
+    """A list that fills, while the block runs, with the rung each ladder of
+    the collapsed bound takes: per layer, the whitening's floor rung (see
+    :func:`_ladder_rung`), then the jitter rungs (0, 3, 7 for the base
+    jitter times 1, 1e3, 1e7) of its two Cholesky factorizations, Kt's and
+    Ct's. The ladders are read by spies put in place of ``whitening_basis``
+    and ``jitchol`` in ``collapsed_vi``, where the bound looks them up; the
+    records are tensors (they run under ``torch.func.vmap`` too)."""
     from rgp_tpu_torch import linalg
     from rgp_tpu_torch.inference import collapsed_vi
-    from rgp_tpu_torch.sample.api import _hyper_elbo
 
     records = []
     basis, chol = collapsed_vi.whitening_basis, collapsed_vi.jitchol
@@ -1170,25 +1217,36 @@ def _batched_rungs(cfg, params, Y, U, V, route, block=32):
     def spy_chol(A, jitter0=1e-6):
         L, jitter = linalg.jitchol_with_jitter(A, jitter0)
         scale = torch.clamp(torch.diagonal(A).mean(), min=1e-30)
-        records.append(torch.round(torch.log10(jitter / (jitter0 * scale))))
+        records.append(torch.round(torch.log10(jitter / (jitter0 * scale))).detach())
         return L
-
-    hyper_elbo = _hyper_elbo(cfg, params, Y, U, block=None if route == "auto" else block, psi_prefer=route)[0]
-    n_rungs = 3 * (cfg.n_hidden + 1)
-
-    def one(v):
-        records.clear()
-        value = hyper_elbo(v, False)
-        check(len(records) == n_rungs, f"the rung spies read {len(records)} ladders, want {n_rungs}: the bound "
-              f"no longer looks up whitening_basis and jitchol in collapsed_vi")
-        return value, torch.stack(records)
 
     collapsed_vi.whitening_basis, collapsed_vi.jitchol = spy_basis, spy_chol
     try:
-        with torch.no_grad():
-            return torch.func.vmap(one)(V)
+        yield records
     finally:
         collapsed_vi.whitening_basis, collapsed_vi.jitchol = basis, chol
+
+
+def _batched_rungs(cfg, params, Y, U, V, route, block=32):
+    """One batched tempered log-likelihood of the particles ``V`` on a route
+    (``auto`` reads Psi2 from K1, ``scan`` from the plain path summed in
+    chunks of ``block`` time steps), with the rungs each ladder took for each
+    particle in that batch (:func:`_rung_spies`). Returns (values (N,),
+    rungs (N, 3 x layers))."""
+    from rgp_tpu_torch.sample.api import _hyper_elbo
+
+    hyper_elbo = _hyper_elbo(cfg, params, Y, U, block=None if route == "auto" else block, psi_prefer=route)[0]
+    n_rungs = 3 * (cfg.n_hidden + 1)
+    with _rung_spies() as records:
+        def one(v):
+            records.clear()
+            value = hyper_elbo(v, False)
+            check(len(records) == n_rungs, f"the rung spies read {len(records)} ladders, want {n_rungs}: the "
+                  f"bound no longer looks up whitening_basis and jitchol in collapsed_vi")
+            return value, torch.stack(records)
+
+        with torch.no_grad():
+            return torch.func.vmap(one)(V)
 
 
 def _psi2_batch(cfg, params, Y, U, unravel, V, route):
@@ -1448,6 +1506,375 @@ def phase_examples(psi2, psi_stats, card):
     return rows
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p11_value_and_grads(fn, params):
+    """(value, [each leaf's gradient as float64 numpy]) of ``fn(params)``:
+    one backward; a leaf the value does not use gets zeros."""
+    from rgp_tpu_torch.params import leaves_with_paths, with_leaves
+
+    leaves = [x.detach().clone().requires_grad_() for _, x in leaves_with_paths(params)]
+    value = fn(with_leaves(params, leaves))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return float(value.detach()), [np.zeros(tuple(x.shape)) if g is None else g.double().cpu().numpy()
+                          for x, g in zip(leaves, grads)]
+
+
+def _p11_hidden_layer(cfg, params, Y, U):
+    """The anchor's hidden layer as a collapsed bound's operands: (kernel,
+    its parameters {kern, Z, log_noise}, X_mu, X_s, target means, target
+    variances), the inputs and targets detached."""
+    from rgp_tpu_torch.models import rgp
+
+    with torch.no_grad():
+        mus, lams = rgp._hidden_moments(cfg, params, Y, U)
+        X_mu, X_s = rgp._layer_inputs(cfg, 0, mus[0], lams[0], None, None, U)
+    L = cfg.layers[0].win
+    lp = params["layers"][0]
+    return (cfg.layers[0].kernel, {k: lp[k] for k in ("kern", "Z", "log_noise")}, X_mu, X_s, mus[0][L:],
+            lams[0][L:])
+
+
+def _p11_bounds(cfg, params, Y, U, mesh):
+    """{name: q -> bound}: 11a's sequence-sharded RGP bound of the whole
+    params, and 11b's data-parallel and inducing-sharded bounds of the hidden
+    layer's {kern, Z, log_noise}; with ``mesh=None`` their single-process
+    counterparts, each a dict {route: q -> bound} over the Psi2 routes."""
+    from rgp_tpu_torch.inference.collapsed_vi import collapsed_bound
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.ops.psi_stats import psi_statistics
+    from rgp_tpu_torch.parallel import (
+        data_parallel_collapsed_elbo,
+        inducing_sharded_collapsed_elbo,
+        sequence_sharded_rgp_elbo,
+    )
+
+    kern, q0, X_mu, X_s, tgt, tgt_var = _p11_hidden_layer(cfg, params, Y, U)
+    operands = (X_mu, X_s, tgt, tgt_var)
+    if mesh is not None:
+        return {
+            "sequence": (params, lambda p: sequence_sharded_rgp_elbo(cfg, p, Y, U, mesh)),
+            "data_parallel": (q0, lambda q: data_parallel_collapsed_elbo(
+                kern, q["kern"], q["Z"], rgp._fln(cfg, q["log_noise"]), *operands, mesh)),
+            "inducing": (q0, lambda q: inducing_sharded_collapsed_elbo(
+                kern, q["kern"], q["Z"], rgp._fln(cfg, q["log_noise"]), *operands, mesh)),
+        }
+
+    def layer(route):
+        def bound(q):
+            stats = psi_statistics(kern, q["kern"], q["Z"], X_mu, X_s, block=None, prefer=route)
+            return collapsed_bound(kern, q["kern"], q["Z"], rgp._fln(cfg, q["log_noise"]), stats, tgt, tgt_var)
+        return bound
+
+    routes = ("auto", "scan")
+    return {
+        "sequence": (params, {r: (lambda p, r=r: rgp.elbo(cfg, p, Y, U, block=None, psi_prefer=r)) for r in routes}),
+        "data_parallel": (q0, {r: layer(r) for r in routes}),
+        "inducing": (q0, {r: layer(r) for r in routes}),
+    }
+
+
+def _p11_rank(rank, root, dev_type):
+    """One rank of phase 11's gloo world on the card (11a-11e); returns its
+    numbers to the parent. Each path's launch counts are set to 0 just before
+    it and read just after, in this rank."""
+    import torch.distributed as dist
+
+    from rgp_tpu_torch import train
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.ops import psi_stats
+    from rgp_tpu_torch.ops.cuda import psi2
+    from rgp_tpu_torch.params import leaves_with_paths
+    from rgp_tpu_torch.parallel import make_mesh, sequence_sharded_rgp_elbo
+    from rgp_tpu_torch.sample.api import make_rgp_potential, nuts_sharded, smc
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    dev = torch.device(dev_type)
+    anchor = os.path.join(root, _C5_ANCHOR)
+    world = dist.get_world_size()
+    mesh = make_mesh(data=world)
+    out = {"backend": dist.get_backend(), "world": world}
+
+    def counted(fn):
+        _c5_zero(psi2, psi_stats)
+        result = fn()
+        _sync(dev)
+        return result, _c5_counts(psi2, psi_stats)
+
+    # 11a, 11b: values and gradients in float64 and float32
+    for dtype in (torch.float64, torch.float32):
+        cfg, params, Y, U, _, _ = _flagship(0, dtype, anchor, device=dev)
+        for name, (q, bound) in _p11_bounds(cfg, params, Y, U, mesh).items():
+            with _rung_spies() as rungs:
+                (value, grads), counts = counted(lambda: _p11_value_and_grads(bound, q))
+            out[(name, str(dtype))] = {"value": value, "grads": grads, "launches": counts,
+                                       "rungs": [float(r) for r in rungs]}
+
+    # 11c: sharded Adam steps at config 1's width
+    cfg, params, Y, U, _, _ = _flagship(0, torch.float32, anchor, device=dev)
+
+    def loss(p):
+        return -sequence_sharded_rgp_elbo(cfg, p, Y, U, mesh)
+
+    train.fit_adam(loss, params, iters=2, learning_rate=1e-2)  # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    fit, counts = counted(lambda: train.fit_adam(loss, params, iters=_P11_ADAM_STEPS, learning_rate=1e-2))
+    wall = time.perf_counter() - t0
+
+    def five():
+        train.fit_adam(loss, params, iters=5, learning_rate=1e-2)
+
+    if rank == 0:
+        prof = profile_device(five, "phase 11c sharded Adam steps, rank 0 of 2", 5)
+        ops = prof["device_ops_per_step"]
+    else:  # the same collectives as profile_device's two calls
+        five()
+        five()
+        _sync(dev)
+        ops = None
+    out["adam"] = {"steps": _P11_ADAM_STEPS, "wall_seconds": wall, "ms_per_step": 1e3 * wall / _P11_ADAM_STEPS,
+                   "device_ops_per_step": ops, "launches": counts, "losses": fit.losses.double().cpu().numpy(),
+                   "params": [x.cpu().numpy() for _, x in leaves_with_paths(fit.params)]}
+
+    # 11d: particle-sharded SMC over the test span
+    cfg, params, Y, U, Ut, Yt = _flagship(0, torch.float32, anchor, device=dev)
+    pmesh = make_mesh(particle=world)
+    smc(cfg, params, Y, U, Ut[:32], Yt[:32], torch.Generator(device=dev).manual_seed(0),
+        n_particles=_P11_SMC_PARTICLES, mesh=pmesh)  # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: smc(cfg, params, Y, U, Ut, Yt, torch.Generator(device=dev).manual_seed(0),
+                                      n_particles=_P11_SMC_PARTICLES, mesh=pmesh))
+    wall = time.perf_counter() - t0
+    out["smc"] = {"log_marginal": float(res.log_marginal), "ess_history": res.ess_history.double().cpu().numpy(),
+                  "wall_seconds": wall, "steps_per_s": int(res.ess_history.shape[0]) / wall, "launches": counts}
+
+    # 11e: chain-sharded NUTS on config 5's potential (auto route)
+    _, flat0, _, batched = make_rgp_potential(cfg, params, Y, U)
+    n_chains = _P11_NUTS["n_chains"]
+    z0 = flat0[None, :] + 0.01 * torch.randn((n_chains, flat0.shape[0]), generator=torch.Generator().manual_seed(0),
+                                             dtype=flat0.dtype).to(dev)
+    kw = {k: v for k, v in _P11_NUTS.items() if k != "n_chains"}
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: nuts_sharded(batched, z0, 0, make_mesh(chain=world), n_chains=n_chains, **kw))
+    wall = time.perf_counter() - t0
+    out["nuts"] = {"step_size": res.step_size.cpu().numpy(), "mass_inv": res.mass_inv.cpu().numpy(),
+                   "launches": counts, "wall_seconds": wall,
+                   "chain_steps_per_s": n_chains * (kw["n_warmup"] + kw["n_samples"]) / wall,
+                   "mean_accept": float(res.accept_prob.mean()), "finite": bool(torch.isfinite(res.samples).all()),
+                   "samples_shape": list(res.samples.shape)}
+    return out
+
+
+def _p11_nccl_rank(rank, root, dev_type):
+    """11f: one rank on NCCL, the sequence-sharded float32 value and
+    gradients at the anchor through the backend's collectives."""
+    import torch.distributed as dist
+
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.ops import psi_stats
+    from rgp_tpu_torch.ops.cuda import psi2
+    from rgp_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    dev = torch.device(dev_type)
+    cfg, params, Y, U, _, _ = _flagship(0, torch.float32, os.path.join(root, _C5_ANCHOR), device=dev)
+    q, bound = _p11_bounds(cfg, params, Y, U, make_mesh(data=dist.get_world_size()))["sequence"]
+    _c5_zero(psi2, psi_stats)
+    value, grads = _p11_value_and_grads(bound, q)
+    _sync(dev)
+    return {"backend": dist.get_backend(), "value": value, "grads": grads, "launches": _c5_counts(psi2, psi_stats)}
+
+
+def _p11_gaps(row, ref):
+    """(|value - ref value|, the largest |gradient - ref gradient| over every
+    leaf, the largest of that over the leaf's largest |ref gradient|)."""
+    diffs = [np.abs(a - b).max() for a, b in zip(row["grads"], ref["grads"])]
+    scaled = [d / max(np.abs(b).max(), 1e-300) for d, b in zip(diffs, ref["grads"])]
+    return abs(row["value"] - ref["value"]), float(max(diffs)), float(max(scaled))
+
+
+def phase_sharded(psi2, psi_stats, root, card, smc_9d, dev_type="cuda"):
+    """Phase 11: the sharded paths (``rgp_tpu_torch.parallel``, the sharded
+    samplers) on ranks spawned on the card, against single-process runs in
+    this process. Returns {path: (K1, K2) launches summed over ranks}."""
+    import tempfile
+
+    from rgp_tpu_torch import train
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.params import leaves_with_paths
+    from rgp_tpu_torch.parallel._launch import spawn_ranks
+    from rgp_tpu_torch.sample.api import smc
+
+    dev = torch.device(dev_type)
+    anchor = os.path.join(root, _C5_ANCHOR)
+    # The kernels were built in phase 2: a rank finds them under build/ and
+    # loads them. Two ranks on one card run over gloo (NCCL refuses two
+    # ranks on one device); gloo's all-reduce takes the CUDA tensors, staging
+    # them through the host. NCCL runs one rank (11f).
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as rdv:
+        ranks = spawn_ranks(_p11_rank, _P11_WORLD, backend="gloo", init_method=f"file://{rdv}/gloo",
+                            args=(root, dev_type), timeout=_P11_TIMEOUT, pg_timeout=_P11_PG_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        (nccl,) = spawn_ranks(_p11_nccl_rank, 1, backend="nccl", init_method=f"file://{rdv}/nccl",
+                              args=(root, dev_type), timeout=_P11_TIMEOUT, pg_timeout=_P11_PG_TIMEOUT)
+    print("phase 11 ranks", json.dumps({"gloo_world": _P11_WORLD, "gloo_seconds": t_ranks,
+                                        "nccl_seconds": time.perf_counter() - t0 - t_ranks,
+                                        "backends": [r["backend"] for r in ranks] + [nccl["backend"]]}))
+    check([r["backend"] for r in ranks] == ["gloo"] * _P11_WORLD and nccl["backend"] == "nccl",
+          "phase 11: the ranks ran on other backends than asked")
+
+    # single-process references on the card: float64 (plain path) and both
+    # float32 routes, each with its ladder rungs
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        cfg, params, Y, U, _, _ = _flagship(0, dtype, anchor, device=dev)
+        for name, (q, bounds) in _p11_bounds(cfg, params, Y, U, None).items():
+            for route, bound in bounds.items():
+                if dtype == torch.float64 and route == "auto":
+                    continue  # float64 takes the plain path on either route
+                with _rung_spies() as rungs:
+                    value, grads = _p11_value_and_grads(bound, q)
+                refs[(name, str(dtype), route)] = {"value": value, "grads": grads,
+                                                   "rungs": [float(r) for r in rungs]}
+    f64, f32 = str(torch.float64), str(torch.float32)
+    counts = {}
+    n_layers = cfg.n_hidden + 1
+    for name, k_f32 in (("sequence", n_layers), ("data_parallel", 1), ("inducing", 0)):
+        ref64 = refs[(name, f64, "scan")]
+        # float64: sharded against single-process, value and every leaf
+        rows64 = [r[(name, f64)] for r in ranks]
+        gaps64 = [_p11_gaps(row, ref64) for row in rows64]
+        # float32, phase 9a's rule: each within twice the single-process
+        # float32 routes' gap to float64
+        rows32 = [r[(name, f32)] for r in ranks]
+        yard = [_p11_gaps(refs[(name, f32, route)], ref64) for route in ("scan", "auto")]
+        yard_v, yard_g = max(y[0] for y in yard), max(y[1] for y in yard)
+        gaps32 = [_p11_gaps(row, ref64) for row in rows32]
+        row = {
+            "path": name, "ranks": _P11_WORLD,
+            "f64_value": ref64["value"], "f64_rel_value_gap": [g[0] / abs(ref64["value"]) for g in gaps64],
+            "f64_grad_gap_over_leaf_max": [g[2] for g in gaps64],
+            "f32_value_sharded": [r["value"] for r in rows32],
+            "f32_value_single": {route: refs[(name, f32, route)]["value"] for route in ("scan", "auto")},
+            "f32_value_gap_vs_f64": [g[0] for g in gaps32], "f32_grad_gap_vs_f64": [g[1] for g in gaps32],
+            "f32_yardstick_value_gap": yard_v, "f32_yardstick_grad_gap": yard_g,
+            "rungs_sharded_f32": [r["rungs"] for r in rows32],
+            "rungs_single_f32": {route: refs[(name, f32, route)]["rungs"] for route in ("scan", "auto")},
+            "rungs_f64": ref64["rungs"],
+            "launches_f32_per_rank": [r["launches"] for r in rows32],
+            "launches_f64_per_rank": [r["launches"] for r in rows64], "card": card,
+        }
+        print("phase 11 bound", json.dumps(row))
+        for r in ranks[1:]:
+            check(r[(name, f32)]["value"] == rows32[0]["value"] and r[(name, f64)]["value"] == rows64[0]["value"],
+                  f"phase 11 {name}: the ranks returned different values")
+        check(all(g[0] <= _P11_F64_RTOL * abs(ref64["value"]) for g in gaps64),
+              f"phase 11 {name} float64: value {[g[0] for g in gaps64]} from the single-process one")
+        check(all(g[2] <= _P11_F64_GRAD_RTOL for g in gaps64),
+              f"phase 11 {name} float64: gradients {[g[2] for g in gaps64]} of the leaf's largest from the "
+              f"single-process ones")
+        check(all(math.isfinite(g[0]) and g[0] <= 2.0 * yard_v and g[1] <= 2.0 * yard_g for g in gaps32),
+              f"phase 11 {name} float32: gaps to float64 {gaps32} above twice the single-process routes' "
+              f"({yard_v}, {yard_g})")
+        want = {"k1": k_f32, "k2": k_f32, "plain_psi2_calls": 0}
+        check(all(r["launches"] == want for r in rows32),
+              f"phase 11 {name} float32 launches per rank {row['launches_f32_per_rank']}, want {want}")
+        check(all(r["launches"]["k1"] == 0 and r["launches"]["k2"] == 0 for r in rows64),
+              f"phase 11 {name} float64 launched a kernel: {row['launches_f64_per_rank']}")
+        counts[name] = sum(r["launches"]["k1"] for r in rows32), sum(r["launches"]["k2"] for r in rows32)
+
+    # 11c: the ranks' Adam steps against single-process steps from the anchor
+    adam = [r["adam"] for r in ranks]
+    check(all(all(np.array_equal(a, b) for a, b in zip(r["params"], adam[0]["params"])) for r in adam[1:]),
+          "phase 11c: the ranks' parameters differ after the sharded Adam steps")
+    check(all(bool(np.isfinite(r["losses"]).all()) for r in adam), "phase 11c: a sharded loss is not finite")
+    want = {"k1": n_layers * _P11_ADAM_STEPS, "k2": n_layers * _P11_ADAM_STEPS, "plain_psi2_calls": 0}
+    check(all(r["launches"] == want for r in adam), f"phase 11c launches {[r['launches'] for r in adam]}, "
+          f"want {want} per rank")
+    cfg, params, Y, U, Ut, Yt = _flagship(0, torch.float32, anchor, device=dev)
+
+    def single_loss(p):
+        return -rgp.elbo(cfg, p, Y, U, block=None)
+
+    train.fit_adam(single_loss, params, iters=2, learning_rate=1e-2)
+    _sync(dev)
+    t0 = time.perf_counter()
+    single = train.fit_adam(single_loss, params, iters=_P11_ADAM_STEPS, learning_rate=1e-2)
+    _sync(dev)
+    single_ms = 1e3 * (time.perf_counter() - t0) / _P11_ADAM_STEPS
+    single_ops = profile_device(lambda: train.fit_adam(single_loss, params, iters=5, learning_rate=1e-2),
+                                "phase 11c single-process Adam steps", 5)["device_ops_per_step"]
+    drift = max(float(np.abs(a - b.cpu().numpy()).max() / max(np.abs(b.cpu().numpy()).max(), 1e-30))
+                for a, (_, b) in zip(adam[0]["params"], leaves_with_paths(single.params)))
+    print("phase 11c adam", json.dumps({
+        "steps": _P11_ADAM_STEPS, "ranks": _P11_WORLD, "ms_per_step": [r["ms_per_step"] for r in adam],
+        "device_ops_per_step_rank0": adam[0]["device_ops_per_step"], "launches_per_rank": [r["launches"] for r in adam],
+        "elbo_first_last": [-float(adam[0]["losses"][0]), -float(adam[0]["losses"][-1])],
+        "single_process_ms_per_step": single_ms, "single_process_device_ops_per_step": single_ops,
+        "single_process_elbo_first_last": [-float(single.losses[0]), -float(single.losses[-1])],
+        "params_drift_vs_single_over_leaf_max": drift,
+        "note": "both ranks share the one card, so no speedup is expected", "card": card}))
+    counts["adam"] = sum(r["launches"]["k1"] for r in adam), sum(r["launches"]["k2"] for r in adam)
+
+    # 11d: the ranks' filter against the single-process filter with the same draws
+    sm = [r["smc"] for r in ranks]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    single = smc(cfg, params, Y, U, Ut, Yt, gen, n_particles=_P11_SMC_PARTICLES)
+    lm = float(single.log_marginal)
+    single_rate = int(single.ess_history.shape[0]) / (time.perf_counter() - t0)
+    gap = abs(sm[0]["log_marginal"] - lm)
+    print("phase 11d smc", json.dumps({
+        "particles": _P11_SMC_PARTICLES, "ranks": _P11_WORLD, "log_marginal": [r["log_marginal"] for r in sm],
+        "single_process_log_marginal": lm, "gap": gap, "tolerance": _P11_SMC_RTOL * (1.0 + abs(lm)),
+        "ess_max_abs_diff": float(np.abs(sm[0]["ess_history"] - single.ess_history.double().cpu().numpy()).max()),
+        "steps_per_s": [r["steps_per_s"] for r in sm], "single_process_steps_per_s_anchor": single_rate,
+        "phase_9d_steps_per_s": smc_9d["value"], "launches_per_rank": [r["launches"] for r in sm],
+        "note": "both ranks share the one card; 9d filters the flagship fitted for 300 steps, 11d the anchor",
+        "card": card}))
+    check(all(r["log_marginal"] == sm[0]["log_marginal"] and np.array_equal(r["ess_history"], sm[0]["ess_history"])
+              for r in sm[1:]), "phase 11d: the ranks' filters differ")
+    check(math.isfinite(sm[0]["log_marginal"]) and bool((sm[0]["ess_history"] > 0).all()),
+          f"phase 11d: log-marginal {sm[0]['log_marginal']} or an ESS of 0")
+    check(gap <= _P11_SMC_RTOL * (1.0 + abs(lm)),
+          f"phase 11d: sharded log-marginal {sm[0]['log_marginal']} against the single-process {lm}")
+
+    # 11e: chain-sharded NUTS
+    nu = [r["nuts"] for r in ranks]
+    print("phase 11e nuts", json.dumps({
+        **{k: v for k, v in _P11_NUTS.items()}, "ranks": _P11_WORLD, "step_size": [float(r["step_size"]) for r in nu],
+        "launches_per_rank": [r["launches"] for r in nu], "chain_steps_per_s": [r["chain_steps_per_s"] for r in nu],
+        "wall_seconds": [r["wall_seconds"] for r in nu], "mean_accept": nu[0]["mean_accept"],
+        "samples_shape": nu[0]["samples_shape"], "card": card}))
+    check(all(np.array_equal(r["step_size"], nu[0]["step_size"]) and np.array_equal(r["mass_inv"], nu[0]["mass_inv"])
+              for r in nu[1:]), "phase 11e: the ranks' step sizes or masses differ")
+    check(all(r["finite"] for r in nu), "phase 11e: a draw is not finite")
+    check(all(r["launches"]["k1"] > 0 and r["launches"]["k2"] > 0 and r["launches"]["plain_psi2_calls"] == 0
+              for r in nu), f"phase 11e launches {[r['launches'] for r in nu]}: want K1 and K2 in every rank")
+    counts["nuts"] = sum(r["launches"]["k1"] for r in nu), sum(r["launches"]["k2"] for r in nu)
+
+    # 11f: one rank on NCCL against the single-process float32 routes
+    ref64 = refs[("sequence", f64, "scan")]
+    g = _p11_gaps(nccl, ref64)
+    yard = [_p11_gaps(refs[("sequence", f32, route)], ref64) for route in ("scan", "auto")]
+    print("phase 11f nccl", json.dumps({"value": nccl["value"], "gap_vs_f64": g[:2],
+                                        "yardstick": [max(y[0] for y in yard), max(y[1] for y in yard)],
+                                        "launches": nccl["launches"], "card": card}))
+    check(g[0] <= 2.0 * max(y[0] for y in yard) and g[1] <= 2.0 * max(y[1] for y in yard),
+          f"phase 11f: NCCL rank's gaps {g[:2]} above twice the single-process float32 routes'")
+    check(nccl["launches"] == {"k1": n_layers, "k2": n_layers, "plain_psi2_calls": 0},
+          f"phase 11f launches {nccl['launches']}")
+    counts["nccl"] = nccl["launches"]["k1"], nccl["launches"]["k2"]
+    return counts
+
+
 def ptxas_report(log):
     """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
     instance, from the ptxas report nvcc wrote beside the library."""
@@ -1524,13 +1951,24 @@ def main():
     c5_potential = timed("9a (config 5 potential)", phase_config5_potential, psi2, psi_stats, root, card)
     timed("9b (config 5 NUTS twin)", phase_config5_nuts, psi2, psi_stats, root, card)
     c5_sample = timed("9c (config 5 sample_nuts)", phase_config5_sample_nuts, psi2, psi_stats, root, card)
-    timed("9d (config 5 SMC twin)", phase_config5_smc, card)
+    smc_9d = timed("9d (config 5 SMC twin)", phase_config5_smc, card)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s wall")
     t10 = time.perf_counter()
     tempered_ll, _ = timed("10a (tempered log-likelihood)", phase_tempered_loglik, psi2, psi_stats, root, card)
     tempered = timed("10b (sample_tempered)", phase_tempered_smc, psi2, psi_stats, root, card)
     timed("10c (examples)", phase_examples, psi2, psi_stats, card)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s wall")
+    sharded = timed("11 (sharded paths on ranks)", phase_sharded, psi2, psi_stats, root, card, smc_9d)
+
+    def by_path(i):
+        """The sharded paths' launches of K1 (i=0) or K2 (i=1), summed over
+        their ranks."""
+        return {f"sharded_sequence_vg_{_P11_WORLD}ranks": sharded["sequence"][i],
+                f"sharded_data_parallel_vg_{_P11_WORLD}ranks": sharded["data_parallel"][i],
+                f"sharded_inducing_vg_{_P11_WORLD}ranks": sharded["inducing"][i],
+                f"sharded_sequence_adam_{_P11_ADAM_STEPS}steps_{_P11_WORLD}ranks": sharded["adam"][i],
+                f"sharded_nuts_{_P11_NUTS['n_chains']}chains_{_P11_WORLD}ranks": sharded["nuts"][i],
+                "sharded_sequence_vg_nccl_1rank": sharded["nccl"][i]}
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
@@ -1554,13 +1992,13 @@ def main():
             {"training": training["k1"], "serving": serving, "config2_training": config2["k1"],
              "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"],
              "config5_potential_auto": c5_potential["k1"], "config5_sample_nuts_4chains": c5_sample["k1"],
-             "tempered_loglik_auto": tempered_ll["k1"], "tempered_smc": tempered["k1"]}, k1_rows),
+             "tempered_loglik_auto": tempered_ll["k1"], "tempered_smc": tempered["k1"], **by_path(0)}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
             {"training": training["k2"], "serving": 0, "config2_training": config2["k2"],
              "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"],
              "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"],
-             "tempered_loglik_auto": tempered_ll["k2"], "tempered_smc": tempered["k2"]}, k2_rows),
+             "tempered_loglik_auto": tempered_ll["k2"], "tempered_smc": tempered["k2"], **by_path(1)}, k2_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

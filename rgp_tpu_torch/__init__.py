@@ -29,6 +29,16 @@ svgp_natgrad``.
 Config 5 (NUTS over the hyperparameters, SMC over latent trajectories):
 ``rgp_tpu_torch.sample.api.sample_nuts`` / ``smc``, or ``python -m
 rgp_tpu_torch.bench.sampling --what nuts|smc``.
+
+Sharding (``rgp_tpu_torch.parallel``): one process per rank over
+``torch.distributed``, every rank calling the same function with the same
+global tensors; ``init_distributed(backend, ...)`` once a process, then
+``make_mesh(data=, chain=, particle=)``. The time-sharded collapsed bound
+(``data_parallel_collapsed_elbo``), the sequence-sharded RGP bound
+(``parallel.sequence_sharded_rgp_elbo``), the inducing-sharded bound
+(``parallel.inducing_sharded_collapsed_elbo``), chain-sharded NUTS
+(``sample.api.nuts_sharded``) and particle-sharded SMC
+(``smc_filter_sharded``, ``sample.api.smc(..., mesh=)``).
 """
 
 from . import kernels, linalg, params
@@ -39,6 +49,8 @@ from .models.rgp import RGPConfig, elbo, freerun
 from .models.rgp import deep_rgp_config as DeepRGP
 from .models.rgp import init_params as init
 from .ops.psi_stats import PsiStats, psi_statistics
+from .parallel.mesh import data_parallel_collapsed_elbo, init_distributed, make_mesh
+from .sample.smc import smc_filter_sharded
 from .train import fit_adam as fit
 
 __version__ = "0.1.0"
@@ -50,6 +62,10 @@ __all__ = [
     "elbo",
     "freerun",
     "fit",
+    "make_mesh",
+    "init_distributed",
+    "data_parallel_collapsed_elbo",
+    "smc_filter_sharded",
     "psi_statistics",
     "PsiStats",
     "Standardizer",

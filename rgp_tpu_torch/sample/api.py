@@ -1,5 +1,4 @@
-"""Sampling entry points over RGP models (port of ``rgp_tpu/sample/api.py``,
-single device).
+"""Sampling entry points over RGP models (port of ``rgp_tpu/sample/api.py``).
 
 ``sample_nuts(cfg, params, Y, U, seed, ...)``: NUTS over the kernel
 hyperparameters (kernel params + noises) in unconstrained space, holding the
@@ -17,7 +16,12 @@ posterior, with a log-evidence estimate for model comparison; its batched
 log-likelihood is :func:`make_rgp_loglik`.
 
 ``smc(cfg, params, ...)``: a particle filter over latent trajectories of the
-trained model (:func:`rgp_tpu_torch.models.rgp_smc.make_ssm`).
+trained model (:func:`rgp_tpu_torch.models.rgp_smc.make_ssm`), its particles
+sharded over ranks with ``mesh=``.
+
+``nuts_sharded(potential, z0, seed, mesh, n_chains=...)``: NUTS with the
+chains sharded over ranks (``torch.distributed``, one process a rank; see
+:mod:`rgp_tpu_torch.parallel`).
 
 The samplers take a BATCHED potential, ``(C, dim) -> (C,)``:
 :func:`make_rgp_potential` builds it as ``torch.func.vmap`` of the
@@ -35,10 +39,11 @@ from typing import Optional
 import torch
 
 from ..models import rgp, rgp_smc
+from ..parallel._collectives import all_gather
 from ..params import leaves_with_paths, ravel, with_leaves
 from .hmc import hmc_sample
 from .nuts import NUTSResult, nuts_sample
-from .smc import SMCResult, smc_filter
+from .smc import SMCResult, smc_filter, smc_filter_sharded
 from .tempered import smc_tempered
 
 __all__ = [
@@ -50,6 +55,7 @@ __all__ = [
     "sample_hmc",
     "make_rgp_loglik",
     "sample_tempered",
+    "nuts_sharded",
     "smc",
 ]
 
@@ -251,10 +257,42 @@ def sample_tempered(cfg, params, Y, U, generator: torch.Generator, *, n_particle
     return smc_tempered(log_prior, log_lik, init_sample, generator, n_particles, **tsmc_kw), unravel
 
 
+def nuts_sharded(potential_fn, z0, seed: int, mesh, *, n_chains: int, axis: str = "chain",
+                 **nuts_kw) -> NUTSResult:
+    """Chain-sharded NUTS: the ``n_chains`` chains split over ``axis`` of
+    ``mesh``, every rank calling with the same arguments. Rank r runs chains
+    ``[r k, (r + 1) k)``, k = n_chains / n, through ``nuts_sample(...,
+    chain_offset=r k, group=...)``: the step size and mass adapt on every
+    chain's statistics, the same bits on every rank, and each chain draws what
+    it draws in one process, so the result equals ``nuts_sample`` with the
+    same seed and chain count (the JAX package splits one key per device
+    instead). Returns the NUTSResult over all chains on every rank."""
+    group = mesh.group(axis)
+    n = mesh.size(axis)
+    if n_chains % n:
+        raise ValueError(f"{n_chains} chains do not divide over the {n} ranks of '{axis}'")
+    per = n_chains // n
+    z0 = torch.atleast_2d(torch.as_tensor(z0))
+    if z0.shape[0] != n_chains:
+        z0 = z0.expand(n_chains, z0.shape[-1])
+    lo = mesh.index(axis) * per
+    res = nuts_sample(potential_fn, z0[lo:lo + per], seed, n_chains=per, chain_offset=lo, group=group,
+                      **nuts_kw)
+    return res._replace(**{k: all_gather(getattr(res, k), group)
+                           for k in ("samples", "potential", "accept_prob", "diverging")})
+
+
 def smc(cfg, params, Y_train, U_train, U_test, Y_test, generator: torch.Generator, *, n_particles: int = 1024,
-        ess_threshold: float = 0.5) -> SMCResult:
+        ess_threshold: float = 0.5, mesh=None, axis: str = "particle") -> SMCResult:
     """Particle filter over latent trajectories of the trained model, its
-    draws from ``generator`` (on the data's device)."""
+    draws from ``generator`` (on the data's device). With a ``mesh``, the
+    particles shard over ``axis`` (:func:`~rgp_tpu_torch.sample.smc.
+    smc_filter_sharded`): every rank calls with the same arguments and a
+    generator in the same state, and gets the one-process result."""
     ssm = rgp_smc.make_ssm(cfg, params, Y_train, U_train, U_test, Y_test)
-    return smc_filter(ssm.transition_sample, ssm.emission_logpdf, ssm.init_sample, ssm.n_steps, generator,
-                      n_particles, ess_threshold=ess_threshold)
+    if mesh is None:
+        return smc_filter(ssm.transition_sample, ssm.emission_logpdf, ssm.init_sample, ssm.n_steps, generator,
+                          n_particles, ess_threshold=ess_threshold)
+    return smc_filter_sharded(ssm.transition_from_normals, ssm.emission_logpdf, ssm.init_sample, ssm.n_steps,
+                              generator, n_particles, mesh, noise_dim=ssm.noise_dim, axis=axis,
+                              ess_threshold=ess_threshold)

@@ -39,6 +39,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel._collectives import all_gather
 from .hmc import step_draws, value_and_grad
 
 __all__ = [
@@ -280,23 +281,33 @@ def _transition(potential_fn, zs, seed, step, chain_offset, step_size, mass_inv,
 
 def nuts_warmup(potential_fn: Callable, carry: NUTSCarry, seed: int, n_steps: int, *, n_warmup: int,
                 max_depth: int = 8, target_accept: float = 0.8, adapt_mass: bool = True,
-                chain_offset: int = 0) -> NUTSCarry:
+                chain_offset: int = 0, group=None) -> NUTSCarry:
     """Advance ``n_steps`` warmup steps from ``carry`` (dual averaging on the
     median accept statistic over chains + pooled-Welford mass estimation).
     ``n_warmup`` is the TOTAL warmup length: it fixes the adaptation schedule
     (window [0.15, 0.9) n_warmup) and must be the same across segments. The
     median is robust to "sink" chains stuck where the float32 potential
     diverges, which report accept ~0 forever (the JAX package measured a mean
-    death-spiral the shared step size)."""
+    death-spiral the shared step size).
+
+    ``group``: the chain axis's process group when the chains are sharded
+    over ranks (``sample.api.nuts_sharded``; this rank's chains start at
+    ``chain_offset``). Every step then gathers every chain's accept
+    statistic, and in the Welford window every chain's position, in global
+    chain order, so the median and the pooled moments are those of one
+    process running all the chains, the same bits on every rank (the JAX
+    package gathers the accept statistics too, and reduces the batch mean
+    and M2 instead: a pmean of per-rank medians would still be dragged down
+    when sink chains cluster on one rank)."""
     mid_lo, mid_hi = int(0.15 * n_warmup), int(0.9 * n_warmup)
     zs, da, welford, mass_inv, i = carry
     for _ in range(n_steps):
         zP, _, acc, _ = _transition(potential_fn, zs, seed, i, chain_offset, torch.exp(da.log_eps), mass_inv,
                                     max_depth)
         # jnp.median: the mean of the two middle values for an even count
-        da = _da_update(da, torch.quantile(acc, 0.5), target_accept)
+        da = _da_update(da, torch.quantile(all_gather(acc, group), 0.5), target_accept)
         if mid_lo <= i < mid_hi:
-            welford = _welford_update(welford, zP)
+            welford = _welford_update(welford, all_gather(zP, group))
         if i == mid_hi:
             # switch in the new mass matrix and restart dual averaging from
             # the averaged step size
@@ -331,12 +342,15 @@ def nuts_draw(potential_fn: Callable, carry: NUTSCarry, seed: int, n_samples: in
 
 def nuts_sample(potential_fn: Callable, z0, seed: int, *, n_samples: int = 500, n_warmup: int = 300,
                 max_depth: int = 8, step_size: float = 0.1, target_accept: float = 0.8, n_chains: int = 1,
-                adapt_mass: bool = True, chain_offset: int = 0, mass_inv0=None) -> NUTSResult:
+                adapt_mass: bool = True, chain_offset: int = 0, mass_inv0=None, group=None) -> NUTSResult:
     """NUTS with dual-averaging warmup: :func:`nuts_init`, then
     :func:`nuts_warmup`, then :func:`nuts_draw`. ``z0``: (dim,) or
-    (n_chains, dim); ``potential_fn`` is batched, (C, dim) -> (C,)."""
+    (n_chains, dim); ``potential_fn`` is batched, (C, dim) -> (C,).
+    ``group``: the chain axis's process group when the chains are sharded
+    (see :func:`nuts_warmup`); the result holds this rank's chains."""
     carry = nuts_init(z0, n_chains=n_chains, step_size=step_size, mass_inv=mass_inv0)
     carry = nuts_warmup(potential_fn, carry, seed, n_warmup, n_warmup=n_warmup, max_depth=max_depth,
-                        target_accept=target_accept, adapt_mass=adapt_mass, chain_offset=chain_offset)
+                        target_accept=target_accept, adapt_mass=adapt_mass, chain_offset=chain_offset,
+                        group=group)
     _, res = nuts_draw(potential_fn, carry, seed, n_samples, max_depth=max_depth, chain_offset=chain_offset)
     return res

@@ -37,9 +37,13 @@ def test_the_port_has_modules():
     "rgp_tpu_torch/sample/tempered.py", "rgp_tpu_torch/utils/checkpoint.py", "rgp_tpu_torch/utils/metrics.py",
     "rgp_tpu_torch/utils/profiling.py", "rgp_tpu_torch/utils/plotting.py",
     "rgp_tpu_torch/examples/evidence_tempered_smc.py", "rgp_tpu_torch/examples/nuts_smc_demo.py",
+    "rgp_tpu_torch/parallel/__init__.py", "rgp_tpu_torch/parallel/_collectives.py",
+    "rgp_tpu_torch/parallel/_launch.py", "rgp_tpu_torch/parallel/mesh.py", "rgp_tpu_torch/parallel/sequence.py",
+    "rgp_tpu_torch/parallel/inducing.py",
 ])
 def test_scan_covers(module):
-    """utils/, sample/tempered.py and the examples are among the scanned files."""
+    """utils/, sample/tempered.py, the examples and parallel/ are among the
+    scanned files."""
     assert ROOT / module in FILES
 
 
