@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. Require a CUDA device; print the card's name and power limit
    (``nvidia-smi``) and the TF32 flags, which must both be off.
 2. Build K1 and K2, the hand-written CUDA Psi2 time-sum kernel and its
-   backward, from ``rgp_tpu_torch/csrc/psi2_{fwd,bwd}.cu`` (nvcc, sm_90a, both
-   at once).
+   backward, from ``rgp_tpu_torch/csrc/psi2_{fwd,bwd}.cu``, and the
+   roofline's exp probe (``csrc/exp_probe.cu``; phase 12a): nvcc, sm_90a,
+   all at once.
 3. Hold K1 and K2 against their plain PyTorch versions, run in float64 on the
    card from the same float32 inputs, at the config-1 layer shapes (T, M, Q) =
    (512, 100, 20) and (512, 100, 1), a shape that does not align to tiles
@@ -187,6 +188,47 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    11f. One rank on NCCL: the float32 sequence-sharded value and gradients
    under 11a's rule, through the backend's collectives.
 
+12. The rest of ``rgp_tpu_torch/bench/`` on the card.
+   12a. ``roofline`` at (2048, 256, 32): the exp probe against its plain
+   float32 chain at 1e-5 relative; ``calibrate``'s measured ceilings beside
+   the published H100 peaks; every ``measure_ops`` row with its time,
+   binding resource and share of the published peak; the K1 row exactly one
+   K1 launch a call and the kernels' forward-and-backward row one K1 and one
+   K2, their bounds phase 3's (K1's, and K1's plus K2's); ``capture_trace``'s
+   top device ops.
+   12b. ``layer_step.run_shape`` at (512, 100, 10, 10) and (2048, 256, 16,
+   16), ``_P12_LAYER_ITERS`` iterations: over each timed call of the full
+   bound and of the pre-materialized bounds, K1 and K2 each 2 launches an
+   iteration and the plain Psi2 path never; wall ms, device ms and device
+   ops an iteration, and the gather share on device and wall time.
+   12c. ``serving.serve`` on the anchor's model (``_flagship(0, ...,
+   params_npz=anchor)``, no training), 3 requests, batch 64: every output
+   finite, element 0 of the batched freerun equal to an unbatched freerun on
+   the same inputs within 1e-4 of its largest, or within the single float32
+   freerun's distance from float64 where that is larger (the variances);
+   steps/s, latencies and the batched steps/s.
+   12d. ``multimodality.run`` at 32 restarts, M=100, 200 steps, chunks of
+   100: K1 exactly one launch a restart a layer in every forward (refreshes
+   and the freeruns' posteriors included), K2 one a restart a layer in every
+   backward, never the plain path; every loss finite; ms and device ops a
+   step, busy share, peak memory, RMSE min/median/max and the correlation
+   table (phase 5 prints the single-restart step). Then at 4 restarts in
+   float64 (plain path): the batched step's ELBOs equal 4 single-restart
+   ``rgp.elbo`` calls at rtol 1e-10 and their gradients within 1e-8 of each
+   leaf's largest (11a's rule).
+   12e. ``posterior_check`` at the anchor: ``card`` at 32 chains, 6 warmup
+   steps, 2 draws (K2 never, K1 only for the frozen whitening); ``compare``
+   against ``artifacts/pcheck_cpu_r5.npz`` (printed); ``surrogate-check`` on
+   the JAX package's ``pcheck_tpu_r5.npz`` and ``pcheck_cpu_r5_freshfloor.npz``
+   (the reference draws the record was made from): its ``U_f64_fresh`` and
+   ``U_f64_frozen`` at all 9 points of ``artifacts/surrogate_check_r5.json``
+   within 0.02, the float32 column printed. Where the fresh basis's float32
+   trial Cholesky takes another floor rung on the card than in the record,
+   the fresh value must match at the record's rung, and the flip is printed.
+   12f. ``python -m rgp_tpu_torch.bench.all --quick --only
+   tasks_narendra_gp_narx --out <tmp>``: its row has return code 0, a parsed
+   result, ``git_sha`` and the card.
+
 Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -208,8 +250,6 @@ _GOLDEN_E0 = -5946.347076392082  # tests/test_golden_regression.py
 _GOLDEN_TRAJ = {0: -5946.347076393514, 9: -3795.857900524881, 24: -2375.0372891290613,
                 49: -1293.6259234232734}
 _TRAIN_STEPS = 500  # cut from bench.py's 1000 to fit phase 10 in the run's 1200 s
-_FP32_OPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores
-_HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # config 1's layers, a ragged shape, a production shape, then config 2's
 # hidden layers (Q 16 and 12 run at the compiled width 20; its output layer is
 # (250, 100, 1))
@@ -252,6 +292,29 @@ _P11_F64_GRAD_RTOL = 1e-8  # float64 gradients, over each leaf's largest
 # run of this phase, ESS up to 4 of 1024 apart). A slicing or draw fault
 # moves it by nats.
 _P11_SMC_RTOL = 1e-4
+# phase 12: the rest of bench/
+_P12_EXP_ELEMS = 8 * 1024 * 1024  # roofline.calibrate's exp-probe array
+_P12_ROOFLINE_SHAPE = (2048, 256, 32)  # roofline.py's production shape
+_P12_LAYER_SHAPES = [(512, 100, 10, 10), (2048, 256, 16, 16)]  # layer_step.py's flagship and production
+_P12_LAYER_ITERS = 50  # cut from layer_step.py's 200 to fit the run's 1200 s
+_P12_SERVING = dict(repeat=3, batch=64)  # serving.py's width, 3 requests (its default is 20)
+# element 0 of the batched freerun against the single freerun, of the
+# largest entry: 1e-4, or the single float32 freerun's own distance from
+# float64 where that is larger. The variance is a difference of O(1) terms
+# (quad - mean^2 + psi0 - trace), so the batched kernels' other rounding
+# moves it more: 2.5e-4 of the largest on an H100 at 700 W (the means
+# 1.2e-6; the single freerun's variances 9.4e-4 from float64).
+_P12_SERVING_RTOL = 1e-4
+_P12_RESTARTS, _P12_MM_ITERS, _P12_MM_CHUNK = 32, 200, 100  # multimodality.py's width; 10000 steps cut to 200
+_P12_F64_RESTARTS = 4
+_P12_CARD = dict(chains=32, warmup=6, samples=2)  # posterior_check.py's 256, 96, 64, cut
+_P12_SURROGATE = "artifacts/surrogate_check_r5.json"
+# the reference draws that record was made from: its ref_chain points are the
+# last draws of this fresh-floor chain (-288.40 / 40.02 at chain 0), not of
+# pcheck_cpu_r5.npz
+_P12_SURROGATE_REF = "artifacts/pcheck_cpu_r5_freshfloor.npz"
+_P12_SURROGATE_TOL = 0.02  # the record's 2 decimals, and float64 summation order
+_P12_ALL_TIMEOUT = 900.0
 # the five examples at cut sizes (their defaults train for thousands of steps)
 _EXAMPLES = [
     ("actuator_rgp", ["--iters", "200"]),
@@ -305,15 +368,11 @@ def bit_identical(a, b):
 
 
 def _card_events(prof):
-    """{kernel or copy name: (device us, count)} of a torch.profiler trace,
-    summed from its recorded events (``kineto_results``), user annotations
-    left out (one spans kernels that are counted on their own)."""
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", bool)():
-            us, count = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
-    return by_name
+    """{kernel or copy name: (device us, count)} of a torch.profiler trace
+    (:func:`rgp_tpu_torch.bench.psi2_times.card_events`)."""
+    from rgp_tpu_torch.bench.psi2_times import card_events
+
+    return card_events(prof)
 
 
 def profile_device(fn, label, steps):
@@ -380,20 +439,11 @@ def profile_readings(fn, label):
     return row
 
 
-def k1_bound_ms(T, M, Q):
-    """Least time for K1's work: (2Q+6) FP32 operations plus one exp (counted
-    as one operation) per element (t, m, n) with m <= n (out is symmetric, so
-    T M(M+1)/2 elements are all the function needs) at the FP32 peak, against
-    each input read once and the output written once at the memory rate."""
-    ops = T * M * (M + 1) // 2 * (2 * Q + 6 + 1)
-    nbytes = 4 * (T + T * M + M * M + T * Q + M * Q + M * M)
-    t_ops, t_bytes = ops / _FP32_OPS_PER_S, nbytes / _HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def phase_k1(psi2):
-    """Phase 3: K1 against its plain version; returns per-shape results."""
+    """Phase 3: K1 against its plain version; returns per-shape results. The
+    bound is :func:`rgp_tpu_torch.bench.roofline.k1_bound_ms`."""
     from rgp_tpu_torch.bench.psi2_times import device_per_call, time_cuda_ms
+    from rgp_tpu_torch.bench.roofline import k1_bound_ms
     from rgp_tpu_torch.kernels import RBF
 
     dev = torch.device("cuda")
@@ -438,21 +488,6 @@ def phase_k1(psi2):
     return rows
 
 
-def k2_bound_ms(T, M, Q):
-    """Least time for K2's work at the FP32 peak, against the inputs (base,
-    E, D1, w, Z, g, out) read once and the outputs (dbase, dE, dD1, dw, dzC)
-    written once. PGs = P (g + g^T) is symmetric in (m, n), so the function
-    needs per timestep M(M-1)/2 pairs m < n at (6Q+10) operations plus one
-    exp (C once, the exp's argument and the product with Gs once, S and dE
-    for both rows) and M diagonal elements at (4Q+8) plus one exp; then
-    2Q per (t, m) each for dw and dzC, and g + g^T and -out g per (m, n)."""
-    per_t = M * (M - 1) // 2 * (6 * Q + 10 + 1) + M * (4 * Q + 8 + 1)
-    ops = T * per_t + 4 * T * M * Q + 2 * M * M
-    nbytes = 4 * (2 * T + 2 * T * M + 4 * M * M + 2 * T * Q + 2 * M * Q)
-    t_ops, t_bytes = ops / _FP32_OPS_PER_S, nbytes / _HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def _within(k, p, rel=3e-4, rel_max=3e-5):
     """(ok, max_abs_err, worst err/tol) for |k - p| <= rel |p| + rel_max max|p|."""
     err = (k.double() - p).abs()
@@ -465,8 +500,9 @@ def phase_k2(psi2):
     """Phase 3b: K2 against its plain version at K1's shapes and at shapes it
     streams, all five outputs, with a random cotangent; a transposed and an
     expanded cotangent against their dense copies; returns per-shape
-    results."""
+    results. The bound is :func:`rgp_tpu_torch.bench.roofline.k2_bound_ms`."""
     from rgp_tpu_torch.bench.psi2_times import device_per_call, time_cuda_ms
+    from rgp_tpu_torch.bench.roofline import k2_bound_ms
     from rgp_tpu_torch.kernels import RBF
 
     dev = torch.device("cuda")
@@ -1875,6 +1911,332 @@ def phase_sharded(psi2, psi_stats, root, card, smc_9d, dev_type="cuda"):
     return counts
 
 
+def phase_roofline(psi2, psi_stats, card):
+    """Phase 12a: the roofline at (2048, 256, 32): the exp probe against its
+    plain chain, the measured ceilings beside the published peaks, every hot
+    op's time, binding resource and share of the published peak; the K1 and
+    K2 rows one launch a call each, with phase 3's bounds; the top device ops
+    of the production step. Returns the launches of the measured ops."""
+    from rgp_tpu_torch.bench import roofline
+    from rgp_tpu_torch.ops.cuda import exp_probe
+
+    dev = torch.device("cuda")
+    x = torch.rand(_P12_EXP_ELEMS, generator=torch.Generator(dev).manual_seed(12), device=dev) + 0.5
+    n0 = exp_probe.launches
+    y = exp_probe.exp_chain(x, 64)
+    torch.cuda.synchronize()
+    ref = exp_probe.exp_chain_plain(x, 64)
+    rel = float(((y - ref).abs() / ref.abs()).max())
+    print("exp probe", json.dumps({"elements": _P12_EXP_ELEMS, "k": 64, "max_rel_err": rel,
+                                   "launches": exp_probe.launches - n0}))
+    check(exp_probe.launches - n0 == 1 and bool(torch.isfinite(y).all()), "exp probe: not one launch, or not finite")
+    check(rel <= 1e-5, f"exp probe off its plain chain by {rel} relative (gate 1e-5)")
+
+    ceilings = roofline.calibrate()
+    print("roofline ceilings", json.dumps({**ceilings, "card": card}))
+    _c5_zero(psi2, psi_stats)
+    ops = roofline.measure_ops(*_P12_ROOFLINE_SHAPE)
+    counts = _c5_counts(psi2, psi_stats)
+    rep = roofline.report(ceilings, ops)
+    for r in rep["ops"]:
+        print("roofline op", json.dumps({k: r[k] for k in (
+            "op", "ms", "binding_resource", "roofline_fraction", "util_mxu", "util_vpu_exp", "util_hbm",
+            "bound_ms", "bound_by", "peak_share", "k1_per_call", "k2_per_call", "plain_psi2_per_call")}))
+    rows = {r["op"]: r for r in rep["ops"]}
+    k1_ms, _ = roofline.k1_bound_ms(*_P12_ROOFLINE_SHAPE)
+    k2_ms, _ = roofline.k2_bound_ms(*_P12_ROOFLINE_SHAPE)
+    for name, want in (("psi2_sum_k1", (1.0, 0.0)), ("psi2_fwd_bwd_k1k2", (1.0, 1.0)),
+                       ("psi2_sum_plain", (0.0, 0.0)), ("psi2_fwd_bwd_plain", (0.0, 0.0))):
+        got = (rows[name]["k1_per_call"], rows[name]["k2_per_call"])
+        check(got == want, f"roofline {name}: K1/K2 launches a call {got}, want {want}")
+    check(rows["psi2_sum_k1"]["bound_ms"] == k1_ms == rows["psi2_sum_plain"]["bound_ms"],
+          f"roofline psi2_sum rows' bound {rows['psi2_sum_k1']['bound_ms']} is not phase 3's {k1_ms}")
+    fb = rows["psi2_fwd_bwd_k1k2"]["bound_ms"]
+    check(fb == rows["psi2_fwd_bwd_plain"]["bound_ms"] and math.isclose(fb, k1_ms + k2_ms, rel_tol=1e-12),
+          f"roofline psi2_fwd_bwd rows' bound {fb} is not phase 3's K1 + K2 {k1_ms + k2_ms}")
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in rep["ops"]), "roofline: a time is not positive")
+    trace = roofline.capture_trace(None, *_P12_ROOFLINE_SHAPE, top=10)
+    print("roofline trace", json.dumps(trace))
+    check(trace[0]["n_events"] > 0, "roofline trace: the profiler recorded no device op")
+    return counts
+
+
+def phase_layer_step(psi2, psi_stats):
+    """Phase 12b: ``layer_step.run_shape`` at the flagship and production
+    shapes: K1 and K2 two launches an iteration in each loss (hidden and
+    output layer), never the plain Psi2 path. Returns the launches."""
+    from rgp_tpu_torch.bench import layer_step
+
+    _c5_zero(psi2, psi_stats)
+    for T, M, win, u_win in _P12_LAYER_SHAPES:
+        row = layer_step.run_shape(T, M, win, u_win, iters=_P12_LAYER_ITERS)
+        print("layer step", json.dumps(row))
+        for loss, n in row["launches_per_iter"].items():
+            check(n == {"k1": 2.0, "k2": 2.0, "plain_psi2": 0.0},
+                  f"layer step ({T}, {M}) {loss}: launches an iteration {n}, want K1 2, K2 2, plain 0")
+        check(all(isinstance(row[k], float) and math.isfinite(row[k]) for k in (
+            "full_layer_step_ms", "premat_bound_ms", "full_layer_step_device_ms", "premat_bound_device_ms")),
+              f"layer step ({T}, {M}): a time is missing")
+    return _c5_counts(psi2, psi_stats)
+
+
+def phase_serving_batched(psi2, psi_stats, root):
+    """Phase 12c: ``serving.serve`` on the anchor (no training): finite
+    outputs, element 0 of the batched freerun equal to an unbatched freerun
+    of the same inputs under ``_P12_SERVING_RTOL``'s rule (a float64 freerun
+    of the same inputs is the yardstick). Returns (record, launches)."""
+    from rgp_tpu_torch.bench import serving
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.models import rgp
+
+    model = _flagship(0, torch.float32, os.path.join(root, _C5_ANCHOR))
+    _c5_zero(psi2, psi_stats)
+    rec, (means, variances), Us = serving.serve(model, return_outputs=True, **_P12_SERVING)
+    counts = _c5_counts(psi2, psi_stats)
+    print("serving batched", json.dumps(rec))
+    cfg, params, Y, U, Ut = model[:5]
+    B, T_star = _P12_SERVING["batch"], Ut.shape[0]
+    check(means.shape == variances.shape == (B, T_star, 1), f"batched freerun shapes {means.shape}")
+    check(bool(torch.isfinite(means).all() and torch.isfinite(variances).all() and (variances > 0).all()),
+          "batched freerun: an output is not finite or a variance not positive")
+    with torch.no_grad():
+        single = rgp.freerun(cfg, params, Y, U, Us[0])
+        f64 = rgp.freerun(cfg, _cast(params, torch.float64), Y.double(), U.double(), Us[0].double())
+
+    def gap(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    row = {}
+    for i, name in enumerate(("mean", "var")):
+        row[name] = {"batched_vs_single": gap((means, variances)[i][0], single[i]),
+                     "single_vs_f64": gap(single[i], f64[i])}
+        row[name]["gate"] = max(_P12_SERVING_RTOL, row[name]["single_vs_f64"])
+    print("serving batched vs single", json.dumps({**row, "launches": counts}))
+    for name, r in row.items():
+        check(r["batched_vs_single"] <= r["gate"],
+              f"batched freerun element 0: {name}s off the single freerun by {r['batched_vs_single']} of "
+              f"the largest (gate {r['gate']})")
+    check(counts["k2"] == 0 and counts["plain_psi2_calls"] == 0, f"serving launches {counts}")
+    return rec, counts
+
+
+def phase_multimodality(psi2, psi_stats, card):
+    """Phase 12d: ``multimodality.run`` at full width, restarts as one batch:
+    K1 once a restart a layer in every forward (refreshes and the freeruns'
+    posteriors included), K2 once a restart a layer in every backward, the
+    plain path never; every loss finite; ms and device ops a step, busy share
+    and peak memory (phase 5 prints config 1's single-restart step). Then at
+    ``_P12_F64_RESTARTS`` restarts in float64 (plain path): the batched step's
+    ELBOs equal single-restart ``rgp.elbo`` calls at rtol 1e-10, and each
+    leaf's gradients within ``_P11_F64_GRAD_RTOL`` of its largest (phase
+    11's rule: the batched cuSOLVER factorizations round otherwise than the
+    single-matrix ones, and the gradients carry Kmm's conditioning: 2.3e-10
+    on an H100 at 700 W). Returns the launches."""
+    import tempfile
+
+    from rgp_tpu_torch.bench import multimodality as mm
+    from rgp_tpu_torch.data import datasets
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.params import leaves_with_paths, with_leaves
+
+    R, iters, chunk = _P12_RESTARTS, _P12_MM_ITERS, _P12_MM_CHUNK
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        _c5_zero(psi2, psi_stats)
+        summary = mm.run(R, iters, 1e-2, 0, chunk, os.path.join(tmp, "table.csv"))
+        counts = _c5_counts(psi2, psi_stats)
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "table.csv")) as f:
+            table = f.read()
+    n_layers = 2
+    refreshes = iters // 100
+    want = {"k1": R * n_layers * (iters + refreshes + 1), "k2": R * n_layers * iters, "plain_psi2_calls": 0}
+    print("multimodality", json.dumps({**summary, "launches": counts, "want": want}))
+    print("multimodality table\n" + table.strip())
+    check(counts == want, f"multimodality launches {counts}, want {want} (R {R} x {n_layers} layers a pass)")
+    check(all(math.isfinite(summary[k]) for k in ("rmse_min", "rmse_median", "rmse_max")),
+          "multimodality: an RMSE is not finite")
+    check(all(math.isfinite(float(r.split(",")[2])) for r in table.strip().splitlines()[1:]),
+          "multimodality: a final ELBO is not finite")
+
+    # one batched step, profiled: device ops, busy share
+    t = datasets.standardized_tensors(datasets.load("actuator"), dtype=torch.float32)
+    cfg = rgp.deep_rgp_config(wins=[0, 10], u_win=10, y_dim=1, u_dim=1, num_inducing=100)
+    stacked = mm.stack_restarts([rgp.init_params(cfg, t.Y, t.U, seed=s) for s in range(R)])
+    leaves = [x.detach().clone().requires_grad_() for _, x in leaves_with_paths(stacked)]
+    p = with_leaves(stacked, leaves)
+    wh = mm.restart_whitenings(cfg, p, t.Y, t.U)
+
+    def step():
+        return torch.autograd.grad(mm.restart_losses(cfg, p, t.Y, t.U, wh).sum(), leaves)
+
+    prof = profile_device(step, f"multimodality batched step, {R} restarts", 1)
+    step_ms = time_host_ms(step, n=5)
+    print("multimodality step", json.dumps({
+        "restarts": R, "ms_per_step_fit": 1e3 * summary["fit_seconds"] / iters, "value_and_grad_ms": step_ms,
+        "device_ops_per_step": prof["device_ops"], "device_busy_share": prof["device_busy_share"],
+        "peak_memory_bytes": peak, "card": card}))
+
+    # float64 on the card (plain path): the batched step against single restarts
+    t64 = datasets.standardized_tensors(datasets.load("actuator"), dtype=torch.float64)
+    singles = [rgp.init_params(cfg, t64.Y, t64.U, seed=s, dtype=torch.float64) for s in range(_P12_F64_RESTARTS)]
+    stacked = mm.stack_restarts(singles)
+    leaves = [x.clone().requires_grad_() for _, x in leaves_with_paths(stacked)]
+    n1 = psi2.launches
+    wh = mm.restart_whitenings(cfg, stacked, t64.Y, t64.U)
+    losses = mm.restart_losses(cfg, with_leaves(stacked, leaves), t64.Y, t64.U, wh)
+    grads = torch.autograd.grad(losses.sum(), leaves)
+    worst = {"value": 0.0, "grad": 0.0}
+    for r, pr in enumerate(singles):
+        with torch.no_grad():
+            wh_r = rgp.compute_whitenings(cfg, pr, t64.Y, t64.U, block=None)
+        lv = [x.clone().requires_grad_() for _, x in leaves_with_paths(pr)]
+        loss = -rgp.elbo(cfg, with_leaves(pr, lv), t64.Y, t64.U, block=None, whitening=wh_r)
+        g1 = torch.autograd.grad(loss, lv)
+        worst["value"] = max(worst["value"], abs(losses[r].item() - loss.item()) / abs(loss.item()))
+        worst["grad"] = max(worst["grad"], max(float((gs[r] - g).abs().max() / g.abs().max().clamp(min=1e-300))
+                                               for gs, g in zip(grads, g1)))
+    print("multimodality f64 batched vs single", json.dumps({**worst, "restarts": _P12_F64_RESTARTS,
+                                                               "k1_launches": psi2.launches - n1}))
+    check(psi2.launches == n1, "multimodality float64: a kernel launched")
+    check(worst["value"] <= 1e-10 and worst["grad"] <= _P11_F64_GRAD_RTOL,
+          f"multimodality float64: the batched step is {worst} from the single restarts (gates 1e-10 in "
+          f"value, {_P11_F64_GRAD_RTOL} of each leaf's largest gradient)")
+    return counts
+
+
+def phase_posterior_check(psi2, psi_stats, root, card):
+    """Phase 12e: ``posterior_check`` at the anchor: ``card`` at 32 chains
+    (K2 never, K1 only for the frozen whitening, one a layer), ``compare``
+    against the JAX package's float64 chain (printed, not gated), and
+    ``surrogate-check`` on the JAX package's draws (``_P12_SURROGATE_REF``
+    for the reference chains): the float64 columns at all 9 points of
+    ``artifacts/surrogate_check_r5.json`` within 0.02, the fresh-basis
+    column at the record's floor rung where the card's float32 trial took
+    another (:func:`_surrogate_rung_flips`).
+    Returns the launches of ``card``."""
+    import tempfile
+
+    from rgp_tpu_torch.bench import posterior_check as pc
+
+    anchor = os.path.join(root, _C5_ANCHOR)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "card.npz")
+        _c5_zero(psi2, psi_stats)
+        rec = pc.mode_card(anchor, out, max_depth=6, target_accept=0.6, group_size=128, seg=3, seed=0,
+                           **_P12_CARD)
+        counts = _c5_counts(psi2, psi_stats)
+        print("posterior check card", json.dumps({**rec, "launches": counts, "card": card}))
+        check(counts["k2"] == 0 and counts["k1"] == 2,
+              f"posterior check card: launches {counts}, want K1 2 (the frozen whitening) and K2 0")
+        with np.load(out) as z:
+            check(z["draws"].shape == (_P12_CARD["chains"], _P12_CARD["samples"], 25)
+                  and bool(np.isfinite(z["draws"]).all()), "posterior check card: draws not finite")
+        cmp = pc.mode_compare(out, os.path.join(root, _C5_CPU_DRAWS))
+        print("posterior check compare", json.dumps({**cmp, "note": "against the JAX package's float64 "
+                                                      "fresh-basis chain: information only"}))
+    tpu_npz, ref_npz = os.path.join(root, _C5_TPU_DRAWS), os.path.join(root, _P12_SURROGATE_REF)
+    sur = pc.mode_surrogate_check(anchor, tpu_npz, ref_npz=ref_npz)
+    with open(os.path.join(root, _P12_SURROGATE)) as f:
+        ref = json.load(f)
+    print("posterior check surrogate", json.dumps(sur))
+    check([r["point"] for r in sur["points"]] == [r["point"] for r in ref["points"]],
+          f"surrogate check points {[r['point'] for r in sur['points']]} are not the recorded ones")
+    gaps = {r["point"]: [abs(r[k] - q[k]) for k in ("U_f64_fresh", "U_f64_frozen")]
+            for r, q in zip(sur["points"], ref["points"])}
+    flips = _surrogate_rung_flips(anchor, tpu_npz, ref_npz, sur, ref, gaps)
+    print("posterior check surrogate gaps", json.dumps({"gaps_f64_fresh_frozen": gaps, "rung_flips": flips,
+                                                        "f32_frozen": {r["point"]: r["U_f32_frozen"]
+                                                                       for r in sur["points"]}}))
+    check(all(g[1] <= _P12_SURROGATE_TOL for g in gaps.values()),
+          f"surrogate check: a frozen-basis float64 potential is off the recorded one by more than "
+          f"{_P12_SURROGATE_TOL}: {gaps}")
+    check(all(g[0] <= _P12_SURROGATE_TOL or flips.get(p, {}).get("confirmed") for p, g in gaps.items()),
+          f"surrogate check: a fresh-basis float64 potential is off the recorded one by more than "
+          f"{_P12_SURROGATE_TOL} without a floor-rung flip behind it: {gaps}, {flips}")
+    return counts
+
+
+@contextlib.contextmanager
+def _forced_floor_rungs(rungs):
+    """``whitening_basis`` (where the collapsed bound looks it up) with the
+    i-th call's spectral floor at rung ``rungs[i]`` (the base floor times 1,
+    1e3, 1e6) and no trial Cholesky."""
+    from rgp_tpu_torch.inference import collapsed_vi
+
+    basis, it = collapsed_vi.whitening_basis, iter(rungs)
+
+    def forced(Kmm, psi2=None, beta=None, spectral_floor=None):
+        return basis(Kmm, spectral_floor=collapsed_vi.default_spectral_floor(Kmm.dtype) * 1e3 ** next(it))
+
+    collapsed_vi.whitening_basis = forced
+    try:
+        yield
+    finally:
+        collapsed_vi.whitening_basis = basis
+
+
+def _surrogate_rung_flips(anchor, tpu_npz, ref_npz, sur, ref, gaps):
+    """{point: ...} for each point where the fresh-basis float64 potential
+    misses the record: its value at every combination of the layers' floor
+    rungs, which combination gives the record's value and which the card's.
+    The fresh basis picks its floor by a float32 trial Cholesky; on the card
+    that trial can pass where the reference's failed (ROADMAP.md Queue 3),
+    and then the record is reproduced at the reference's rung ("confirmed")."""
+    import itertools
+
+    from rgp_tpu_torch.bench.sampling import _flagship
+    from rgp_tpu_torch.sample.api import make_rgp_potential
+
+    misses = [p for p, g in gaps.items() if g[0] > _P12_SURROGATE_TOL]
+    if not misses:
+        return {}
+    cfg, p64, Y, U, _, _ = _flagship(0, torch.float64, anchor)
+    fresh, flat0, _, _ = make_rgp_potential(cfg, p64, Y, U, block=64, psi_prefer="scan", fixed_whitening=False)
+    with np.load(tpu_npz) as z:
+        draws = z["draws"].reshape(-1, flat0.shape[0])
+    with np.load(ref_npz) as z:
+        last = z["draws"][:, -1]
+    ours = {r["point"]: r["U_f64_fresh"] for r in sur["points"]}
+    recorded = {q["point"]: q["U_f64_fresh"] for q in ref["points"]}
+    out = {}
+    for name in misses:
+        v = (flat0.cpu().numpy() if name == "anchor" else draws[int(name.rsplit("_", 1)[1])]
+             if name.startswith("tpu_draw_") else last[int(name[len("ref_chain")])])
+        vals = {}
+        for combo in itertools.product(range(3), repeat=cfg.n_hidden + 1):
+            with torch.no_grad(), _forced_floor_rungs(combo):
+                vals[str(combo)] = float(fresh(torch.as_tensor(v, dtype=torch.float64, device=flat0.device)))
+        rec_rungs = [c for c, u in vals.items() if abs(u - recorded[name]) <= _P12_SURROGATE_TOL]
+        card_rungs = [c for c, u in vals.items() if abs(u - ours[name]) <= 1e-9 * (1.0 + abs(u))]
+        out[name] = {"values_by_rungs": vals, "record_rungs": rec_rungs, "card_rungs": card_rungs,
+                     "confirmed": bool(rec_rungs and card_rungs and not set(rec_rungs) & set(card_rungs))}
+    return out
+
+
+def phase_all(root, card):
+    """Phase 12f: ``bench.all --quick --only tasks_narendra_gp_narx`` as a
+    subprocess: its row has return code 0, a parsed result, the code's sha
+    and the card."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rows.jsonl")
+        r = subprocess.run([sys.executable, "-m", "rgp_tpu_torch.bench.all", "--quick", "--only",
+                            "tasks_narendra_gp_narx", "--out", out], cwd=root, capture_output=True, text=True,
+                           timeout=_P12_ALL_TIMEOUT)
+        check(r.returncode == 0, f"bench.all exited {r.returncode}: {r.stderr[-2000:]}")
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+    print("bench all", json.dumps(rows))
+    check(len(rows) == 1 and rows[0]["name"] == "tasks_narendra_gp_narx", f"bench.all rows: {rows}")
+    row = rows[0]
+    check(row.get("returncode") == 0 and isinstance(row.get("result"), dict),
+          f"bench.all row: return code {row.get('returncode')}, result {row.get('result')}")
+    check(isinstance(row.get("git_sha"), str) and row.get("card") == card, f"bench.all row: sha or card missing: {row}")
+
+
 def ptxas_report(log):
     """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
     instance, from the ptxas report nvcc wrote beside the library."""
@@ -1927,7 +2289,7 @@ def main():
     t0 = time.perf_counter()
     libs = psi2.build()
     build_s = time.perf_counter() - t0
-    print(f"kernel build (K1 and K2 at once): {build_s:.1f} s")
+    print(f"kernel build (K1, K2 and the exp probe at once): {build_s:.1f} s")
     print(f"phase 2: {build_s:.1f} s wall")
     ptxas = {}
     for name, so in libs.items():
@@ -1959,16 +2321,30 @@ def main():
     timed("10c (examples)", phase_examples, psi2, psi_stats, card)
     print(f"phase 10: {time.perf_counter() - t10:.1f} s wall")
     sharded = timed("11 (sharded paths on ranks)", phase_sharded, psi2, psi_stats, root, card, smc_9d)
+    t12 = time.perf_counter()
+    p12 = {
+        "roofline_measure_ops": timed("12a (roofline)", phase_roofline, psi2, psi_stats, card),
+        f"layer_step_2shapes_{_P12_LAYER_ITERS}iters": timed("12b (layer step)", phase_layer_step, psi2, psi_stats),
+        f"serving_batched_{_P12_SERVING['batch']}": timed("12c (batched serving)", phase_serving_batched, psi2,
+                                                          psi_stats, root)[1],
+        f"multimodality_{_P12_RESTARTS}restarts_{_P12_MM_ITERS}steps": timed(
+            "12d (multimodality)", phase_multimodality, psi2, psi_stats, card),
+        f"posterior_check_card_{_P12_CARD['chains']}chains": timed("12e (posterior check)", phase_posterior_check,
+                                                                   psi2, psi_stats, root, card),
+    }
+    timed("12f (bench all)", phase_all, root, card)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s wall")
 
     def by_path(i):
         """The sharded paths' launches of K1 (i=0) or K2 (i=1), summed over
-        their ranks."""
+        their ranks, and phase 12's."""
         return {f"sharded_sequence_vg_{_P11_WORLD}ranks": sharded["sequence"][i],
                 f"sharded_data_parallel_vg_{_P11_WORLD}ranks": sharded["data_parallel"][i],
                 f"sharded_inducing_vg_{_P11_WORLD}ranks": sharded["inducing"][i],
                 f"sharded_sequence_adam_{_P11_ADAM_STEPS}steps_{_P11_WORLD}ranks": sharded["adam"][i],
                 f"sharded_nuts_{_P11_NUTS['n_chains']}chains_{_P11_WORLD}ranks": sharded["nuts"][i],
-                "sharded_sequence_vg_nccl_1rank": sharded["nccl"][i]}
+                "sharded_sequence_vg_nccl_1rank": sharded["nccl"][i],
+                **{name: c[("k1", "k2")[i]] for name, c in p12.items()}}
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer

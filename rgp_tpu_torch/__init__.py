@@ -12,7 +12,7 @@ tensors. The RBF Psi2 time sum on uncertain inputs runs in hand-written CUDA
 kernels (``ops/cuda/psi2.py``, ``csrc/psi2_{fwd,bwd}.cu``) for float32 CUDA
 tensors.
 
-Public surface, for what is ported:
+Public surface:
 
     import rgp_tpu_torch as rgp
     cfg    = rgp.DeepRGP(wins=[0, 20], u_win=20, y_dim=Dy, u_dim=Du,
@@ -20,6 +20,9 @@ Public surface, for what is ported:
     params = rgp.init(cfg, Y, U)
     fit    = rgp.fit(lambda p: -rgp.elbo(cfg, p, Y, U), params, iters=10_000)
     sim    = rgp.freerun(cfg, fit.params, Y, U, U_test)      # means + vars
+    post   = rgp.sample_nuts(cfg, fit.params, Y, U, seed, n_chains=8)
+    traj   = rgp.smc(cfg, fit.params, Y, U, U_test, Y_test, generator,
+                     n_particles=1024, mesh=mesh)
 
 Config 4 (minibatch SVI with natural-gradient q(u)): ``rgp.svgp`` with
 ``rgp_tpu_torch.train.fit_minibatch(..., natgrad_block="qu")``, or the
@@ -50,8 +53,11 @@ from .models.rgp import deep_rgp_config as DeepRGP
 from .models.rgp import init_params as init
 from .ops.psi_stats import PsiStats, psi_statistics
 from .parallel.mesh import data_parallel_collapsed_elbo, init_distributed, make_mesh
+from .sample.api import sample_hmc, sample_nuts, smc
+from .sample.nuts import nuts_sample
 from .sample.smc import smc_filter_sharded
 from .train import fit_adam as fit
+from .train import fit_scipy_lbfgs
 
 __version__ = "0.1.0"
 
@@ -62,6 +68,11 @@ __all__ = [
     "elbo",
     "freerun",
     "fit",
+    "fit_scipy_lbfgs",
+    "sample_nuts",
+    "sample_hmc",
+    "smc",
+    "nuts_sample",
     "make_mesh",
     "init_distributed",
     "data_parallel_collapsed_elbo",

@@ -1,5 +1,6 @@
-"""Benchmarks of the port on the card: ``harness`` (``python -m
-rgp_tpu_torch.bench``, the twin of ``rgp_tpu.bench.harness`` for configs 1-4),
-``config1`` (the twin of the root ``bench.py``) and ``sampling`` (``python -m
-rgp_tpu_torch.bench.sampling``, the twin of ``rgp_tpu.bench.sampling`` for
-config 5)."""
+"""Benchmarks of the port on the card, each the twin of its ``rgp_tpu.bench``
+module: ``harness`` (``python -m rgp_tpu_torch.bench``, configs 1-4),
+``config1`` (the root ``bench.py``), ``sampling`` (config 5), ``serving``,
+``layer_step``, ``roofline``, ``multimodality``, ``posterior_check`` and
+``all`` (the sweep); and the port's own tools ``psi2_times``,
+``serve_times`` and ``order_spread``."""

@@ -50,6 +50,37 @@ def _device_ops(fn, calls):
     return us, ops, names
 
 
+def card_events(prof):
+    """{kernel or copy name: (device us, count)} of a torch.profiler trace,
+    summed from its recorded events (``kineto_results``), user annotations
+    left out (one spans kernels that are counted on their own). Without the
+    per-event Python objects that ``key_averages()`` builds, which took
+    minutes at 10^5 device ops a call."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", bool)():
+            us, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    return by_name
+
+
+def card_window(fn, calls):
+    """(device ms per call, device ops per call, {name: (us, count)}) of
+    ``calls`` back-to-back calls of ``fn`` in one trace of the card alone,
+    after a warm-up call: the sum of the kernels' and copies' recorded
+    durations (host time between them is not counted). CUPTI can drop
+    records (see :func:`device_per_call`), so both are lower bounds."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = card_events(prof)
+    return (sum(us for us, _ in by_name.values()) / 1e3 / calls, sum(c for _, c in by_name.values()) / calls,
+            by_name)
+
+
 def host_top(fn, calls=20, k=8):
     """Where the host time of ``fn`` goes: the ``k`` host-side ops (torch ops
     and CUDA runtime calls) with the most self time in torch.profiler over
@@ -88,6 +119,25 @@ def device_per_call(fn, n=20, trials=5):
               f"{ops} in the {n}-call window, {per_call} a single call)")
         time.sleep(1.0)
     raise RuntimeError("torch.profiler recorded no device operation in 5 attempts: no device time")
+
+
+def back_to_back_ms(fn, dev, n):
+    """ms a call of ``n`` back-to-back calls of ``fn``: CUDA events around
+    them and one synchronize at the end (host time between the calls
+    included, as the caller would see it). On the CPU the host clock stands
+    in for the events."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def time_cuda_ms(fn, n=30, warm=3):

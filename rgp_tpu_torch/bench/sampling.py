@@ -81,23 +81,33 @@ def _card(dev):
 def bench_nuts(chains: int, warmup: int, samples: int, max_depth: int, fit_iters: int, seed: int = 0,
                group_size: int = 128, block: int = 32, target_accept: float = 0.6, seg: int = 3,
                shared_warmup: bool = False, params_npz: str | None = None, warmup_depth: int | None = None,
-               init_eps: float = 0.1, device=None, return_draws: bool = False):
+               init_eps: float = 0.1, device=None, return_draws: bool = False, adapt_mass: bool = True,
+               mass_from: str | None = None, init_from: str | None = None, model=None):
     """The NUTS record. ``chains`` must be a multiple of ``group_size`` and
     ``warmup`` of ``seg``. Every group warms up independently unless
     ``shared_warmup`` (one warmed group copied to all, recorded in
     ``independent_warmup_chains``). ``init_eps`` is dual averaging's starting
-    step size; ``warmup_depth`` caps the tree depth in warmup only.
-    ``return_draws``: also return the draws (chains, samples, dim), their
-    divergence flags and the final step size of each group."""
-    from ..sample.api import hessian_diagonal, make_rgp_potential
+    step size; ``warmup_depth`` caps the tree depth in warmup only;
+    ``adapt_mass`` False keeps the initial mass through warmup.
+    ``return_draws``: also return the draws (chains, samples, dim) and their
+    divergence flags.
+
+    The initial mass is the Hessian diagonal's, or with ``mass_from`` the
+    empirical variance of the draws in that npz; each group starts at the
+    anchor plus the capped jitter, or with ``init_from`` at draws picked from
+    that npz (``posterior_check``'s options). ``model``: (cfg, params, Y, U,
+    ...) in place of ``_flagship(fit_iters, float32, params_npz)``."""
+    from ..sample.api import make_rgp_potential
     from ..sample.diagnostics import ess, split_rhat
     from ..sample.hmc import step_draws
     from ..sample.nuts import nuts_draw, nuts_init, nuts_warmup
-    from .posterior_check import _jit_scale
+    from .posterior_check import _draws_of, _initial_mass, _jit_scale
 
     if chains % group_size or warmup % seg:
         raise ValueError("chains must be a multiple of group_size and warmup a multiple of seg")
-    cfg, params, Y, U, _, _ = _flagship(fit_iters, torch.float32, params_npz, device=device)
+    if model is None:
+        model = _flagship(fit_iters, torch.float32, params_npz, device=device)
+    cfg, params, Y, U = model[:4]
     dev = Y.device
     potential, flat0, _, batched = make_rgp_potential(cfg, params, Y, U, block=block, psi_prefer="scan",
                                                       fixed_whitening=True)
@@ -107,9 +117,13 @@ def bench_nuts(chains: int, warmup: int, samples: int, max_depth: int, fit_iters
 
     # Hessian-diagonal mass: without it dual averaging collapses eps on this
     # stiff posterior and every tree saturates max_depth
-    mass_inv0 = 1.0 / torch.clamp(torch.abs(hessian_diagonal(potential, flat0)), 1e-4, 1e14)
+    mass_inv0 = _initial_mass(potential, flat0, mass_from)
+    pool = None if init_from is None else _draws_of(init_from, flat0.shape[0])
 
     def group_z0(g):
+        if pool is not None:
+            idx = np.random.default_rng([k_init, g]).choice(pool.shape[0], wc, replace=pool.shape[0] < wc)
+            return torch.as_tensor(pool[idx], dtype=flat0.dtype, device=dev)
         normals, _ = step_draws(k_init, g, wc, 0, flat0.shape[0], 0, flat0.dtype, dev)
         return flat0[None, :] + _jit_scale(mass_inv0)[None, :] * normals
 
@@ -120,7 +134,7 @@ def bench_nuts(chains: int, warmup: int, samples: int, max_depth: int, fit_iters
 
     def warm(c, g):
         return nuts_warmup(batched, c, k_warm, seg, n_warmup=warmup, max_depth=w_depth,
-                           target_accept=target_accept, chain_offset=g * wc)
+                           target_accept=target_accept, chain_offset=g * wc, adapt_mass=adapt_mass)
 
     def draw1(c, g):
         return nuts_draw(batched, c, k_draw, 1, max_depth=max_depth, chain_offset=g * wc)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "default_jitter",
     "hdot",
     "tdot",
     "jitchol",
@@ -35,6 +36,13 @@ def hdot(a, b):
 def tdot(a):
     """A @ A^T (reference ``tdot``, i.e. dsyrk)."""
     return torch.matmul(a, a.mT)
+
+
+def default_jitter(dtype) -> float:
+    """Dtype-aware jitter floor: 1e-6 (the reference's) for 8-byte floats,
+    1e-4 otherwise, where float32 needs a larger floor to keep Kmm
+    factorizable."""
+    return 1e-6 if torch.finfo(dtype).bits >= 64 else 1e-4
 
 
 def _add_jitter(A, jitter):

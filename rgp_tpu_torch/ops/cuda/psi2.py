@@ -54,7 +54,10 @@ __all__ = [
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = {"psi2_fwd": CSRC / "psi2_fwd.cu", "psi2_bwd": CSRC / "psi2_bwd.cu"}
+# every CUDA source of the port, built together by :func:`build`; the exp
+# probe (``exp_probe.cu``) is the roofline's instrument, loaded by
+# :mod:`rgp_tpu_torch.ops.cuda.exp_probe`
+SOURCES = {"psi2_fwd": CSRC / "psi2_fwd.cu", "psi2_bwd": CSRC / "psi2_bwd.cu", "exp_probe": CSRC / "exp_probe.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 MAX_Q = 128  # kMaxQ in both sources
 _SMS = 132  # SMs of an H100 SXM: the partitions are planned for it on every device

@@ -39,11 +39,13 @@ def test_the_port_has_modules():
     "rgp_tpu_torch/examples/evidence_tempered_smc.py", "rgp_tpu_torch/examples/nuts_smc_demo.py",
     "rgp_tpu_torch/parallel/__init__.py", "rgp_tpu_torch/parallel/_collectives.py",
     "rgp_tpu_torch/parallel/_launch.py", "rgp_tpu_torch/parallel/mesh.py", "rgp_tpu_torch/parallel/sequence.py",
-    "rgp_tpu_torch/parallel/inducing.py",
+    "rgp_tpu_torch/parallel/inducing.py", "rgp_tpu_torch/bench/all.py", "rgp_tpu_torch/bench/serving.py",
+    "rgp_tpu_torch/bench/layer_step.py", "rgp_tpu_torch/bench/multimodality.py", "rgp_tpu_torch/bench/roofline.py",
+    "rgp_tpu_torch/bench/posterior_check.py", "rgp_tpu_torch/ops/cuda/exp_probe.py",
 ])
 def test_scan_covers(module):
-    """utils/, sample/tempered.py, the examples and parallel/ are among the
-    scanned files."""
+    """utils/, sample/tempered.py, the examples, parallel/ and bench/ are
+    among the scanned files."""
     assert ROOT / module in FILES
 
 
@@ -51,3 +53,14 @@ def test_scan_covers(module):
 def test_no_jax_or_rgp_tpu_import(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_root_exports_the_jax_packages_public_names():
+    """Every name of ``rgp_tpu.__all__`` is in ``rgp_tpu_torch.__all__`` and
+    resolves on the package."""
+    import rgp_tpu
+    import rgp_tpu_torch
+
+    assert set(rgp_tpu.__all__) <= set(rgp_tpu_torch.__all__)
+    for name in rgp_tpu_torch.__all__:
+        assert getattr(rgp_tpu_torch, name) is not None, name

@@ -131,3 +131,9 @@ def test_backsub_both_sides_matches_jax(rng, transpose):
     np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-13)
     with pytest.raises(ValueError):
         tl.backsub_both_sides(torch.tensor(L), torch.tensor(X), transpose="both")
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float64, jnp.float64), (torch.float32, jnp.float32),
+                                    (torch.bfloat16, jnp.bfloat16)], ids=["f64", "f32", "bf16"])
+def test_default_jitter_matches_jax(dtypes):
+    assert tl.default_jitter(dtypes[0]) == jl.default_jitter(dtypes[1])
