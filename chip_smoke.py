@@ -29,6 +29,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    gradients for (p, Z, mu, s) (K1 + K2, float32) against autograd of the
    plain chunked path (float64) at the config-1 layer shapes, at K2's
    tolerance.
+   3d. The batched kernels (a leading batch axis of instances, one launch):
+   at (512, 100, 20), (512, 100, 1) and (2048, 256, 32), B = 8 and 32, Z
+   shared (batch stride 0) and batched. Every instance's outputs bit-identical
+   to its own single launch (K2 with a random and with an expanded
+   cotangent), within the tolerances above of the batched plain versions in
+   float64, and one launch a batched call; with Z shared, the device time of
+   one batched call beside B single launches, and the bound (B single
+   bounds).
 4. Serve config 1 in float32 on the card: actuator data,
    ``deep_rgp_config(wins=[0,10], u_win=10, num_inducing=100)``,
    ``init_params(seed=0)``, then ``elbo`` (forward), ``compute_whitenings``,
@@ -51,6 +59,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    training steps. Then the f32-lane gate after training
    (tests/test_f32_lane.py): config-2 shape (drives, wins=[0,2,2], T=64...128,
    M=16), 20 float32 Adam steps through K1/K2, then |e32-e64|/(1+|e64|) < 1e-3.
+   5c. Config 1's restarts as one batch, ``config1.fit_restarts`` (the twin
+   of ``bench.py --restarts 8``), 8 restarts, 200 steps: K1 and K2 exactly
+   one launch a layer a step for all restarts (K1 also one a layer a
+   whitening refresh), the plain path never; ms and device ops a step beside
+   phase 5's single restart; every final ELBO and the kept restart's RMSE.
+   Then the same 8 seeds one at a time through ``config1.fit``: every
+   restart's final ELBO, and the kept restart's, within the float32 order
+   spread of config 1's endpoint (ROADMAP Queue 3: 244.66 - 201.85) of the
+   sequential run's, and the same restart kept, or else the two picks a
+   near tie within that spread (the flip is printed).
 6. float64 on the card (plain path): the golden-setup ELBO (actuator, M=50,
    seed 0, block=None) must equal -5946.347076392082 at rtol 1e-8, and 50
    Adam(1e-2) steps must pass the golden trajectory at steps 0, 9 and 24 at
@@ -102,8 +120,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    chains of ``artifacts/pcheck_tpu_r5.npz``, one batched float32
    value-and-gradient through ``make_rgp_potential``'s vmapped potential on
    each route, ``scan`` (the plain chunked Psi2, block 32) and ``auto`` (K1/K2
-   through the Function's vmap rule: exactly one K1 and one K2 launch per
-   chain per layer, the plain path never), against the float64 plain
+   through the Function's vmap rule: exactly one batched K1 and one batched
+   K2 launch a layer for all chains, the plain path never), against the float64 plain
    potential at the same points. float32 itself is up to ~1.6 nats off
    float64 at these points (the plain route, measured on the card; the
    surrogate check's 0.79 was the worst of four points), so each route is held
@@ -133,8 +151,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    10a. One batched tempered log-likelihood (``sample.api.make_rgp_loglik``:
    ``rgp.elbo`` with the default jitter and a fresh laddered whitening) at 512
    particles drawn from ``sample_tempered``'s prior (std 3 about the
-   anchor), on both routes: ``auto`` must launch K1 exactly once per particle
-   per layer (1024) with no K2 and no plain path, ``scan`` (block 32) no K1.
+   anchor), on both routes: ``auto`` must launch K1 exactly once a layer for
+   all particles (2) with no K2 and no plain path, ``scan`` (block 32) no K1.
    Per route: ms a call, device ops, busy share, peak memory. The routes are
    held against float64 (plain) at 16 particles and against each other at
    512 under phase 9a's rule, in relative gaps |x - e64| / (1 + |e64|) (the
@@ -145,7 +163,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    or are not both finite, is printed with each layer's ladder rung on each
    route.
    10b. ``sample_tempered`` at 512 particles with the reference's defaults
-   (50 stages, ESS target 0.5, 3 moves, step scale 0.5): K1 exactly 1024 per
+   (50 stages, ESS target 0.5, 3 moves, step scale 0.5): K1 exactly 2 per
    log-likelihood evaluation, no K2, no plain path; log Z finite, the beta
    schedule increasing to ``beta_final`` (a truncation below 1 is printed,
    not failed), 0 < accept <= 1, every particle finite, and the ELBO at the
@@ -208,8 +226,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    freerun's distance from float64 where that is larger (the variances);
    steps/s, latencies and the batched steps/s.
    12d. ``multimodality.run`` at 32 restarts, M=100, 200 steps, chunks of
-   100: K1 exactly one launch a restart a layer in every forward (refreshes
-   and the freeruns' posteriors included), K2 one a restart a layer in every
+   100: K1 exactly one launch a layer for all restarts in every forward
+   (refreshes and the freeruns' posteriors included), K2 one a layer in every
    backward, never the plain path; every loss finite; ms and device ops a
    step, busy share, peak memory, RMSE min/median/max and the correlation
    table (phase 5 prints the single-restart step). Then at 4 restarts in
@@ -250,6 +268,13 @@ _GOLDEN_E0 = -5946.347076392082  # tests/test_golden_regression.py
 _GOLDEN_TRAJ = {0: -5946.347076393514, 9: -3795.857900524881, 24: -2375.0372891290613,
                 49: -1293.6259234232734}
 _TRAIN_STEPS = 500  # cut from bench.py's 1000 to fit phase 10 in the run's 1200 s
+# phase 5c: config 1's restarts as one batch (bench.py's --restarts 8), cut
+# to 200 steps (two whitening refreshes), and the same seeds one at a time
+_P5_RESTARTS, _P5_RESTART_STEPS = 8, 200
+# the float32 config-1 endpoint's spread across summation orders (ROADMAP
+# Queue 3, "The f32 config-1 endpoint moves with summation order": ELBO
+# 201.85-244.66 across K1/K2 T splits)
+_P5_ELBO_SPREAD = 244.66 - 201.85
 # config 1's layers, a ragged shape, a production shape, then config 2's
 # hidden layers (Q 16 and 12 run at the compiled width 20; its output layer is
 # (250, 100, 1))
@@ -266,6 +291,9 @@ _C4_ROUTES = {"gp_narx_collapsed": 300, "svgp_natgrad": 300, "svgp_natgrad_colla
 _C4_BATCH = 512  # rgp_tpu/bench/harness.py's default
 _C4_TIMED_FREERUNS = ("gp_narx_collapsed", "svgp_natgrad")
 _SVGP_UNCERTAIN = (512, 100, 20)  # (T, M, Q): config 1's hidden-layer shape
+# phase 3d: the batched kernels at config 1's layers and the production shape
+_BATCHED_SHAPES = [(512, 100, 20), (512, 100, 1), (2048, 256, 32)]
+_BATCHES = (8, 32)
 # config 5: the committed anchor and the JAX package's draws at it
 _C5_ANCHOR = "artifacts/pcheck_params_r5.npz"
 _C5_TPU_DRAWS = "artifacts/pcheck_tpu_r5.npz"  # (256 chains, 64 draws, 25): the f32 frozen-basis surrogate
@@ -588,6 +616,119 @@ def phase_vjp(psi2, psi_stats):
               f"the Function's VJP disagrees with autograd of the plain path at {T, M, Q}: {per}")
 
 
+def _batched_psi2_args(psi2, rng, B, T, M, Q, shared_z):
+    """B instances' float32 (base, E, D1, w, Z) on the card: each its own mu,
+    s and lengthscale (sqrt(Q), scaled by 1 + 0.05 b), and Z shared
+    (expanded, batch stride 0: the chain case) or each instance's own (the
+    restart case)."""
+    from rgp_tpu_torch.kernels import RBF
+
+    dev = torch.device("cuda")
+    Z0 = torch.as_tensor(rng.standard_normal((M, Q)), device=dev)
+    cols = []
+    for b in range(B):
+        mu = torch.as_tensor(rng.standard_normal((T, Q)), device=dev)
+        s = torch.as_tensor(rng.uniform(0.05, 0.4, (T, Q)), device=dev)
+        Z = Z0 if shared_z else torch.as_tensor(rng.standard_normal((M, Q)), device=dev)
+        p = RBF(input_dim=Q).init(lengthscale=math.sqrt(Q) * (1.0 + 0.05 * b), dtype=torch.float64, device=dev)
+        cols.append([x.to(torch.float32) for x in (*psi2.rbf_psi2_precompute(p, Z, mu, s), Z)])
+    args = [torch.stack(xs) for xs in zip(*cols)]
+    if shared_z:
+        args[4] = args[4][0].expand(B, M, Q)
+    return args
+
+
+def _device_ms_per_call(fn, launches, calls=20):
+    """(device ms, recorded device ops) a call of ``fn``, which makes
+    ``launches`` kernel launches and nothing else on the card: the mean
+    recorded duration of its kernels over ``calls`` back-to-back calls in a
+    trace of the card alone, times ``launches``. CUPTI drops records (the
+    last of a window of kernels of a millisecond or more, every time on an
+    H100), which leaves the mean of those it kept as it is."""
+    from rgp_tpu_torch.bench.psi2_times import card_window
+
+    _, ops, by_name = card_window(fn, calls)
+    n = sum(c for _, c in by_name.values())
+    check(n > 0, "the profiler recorded no device operation")
+    return sum(us for us, _ in by_name.values()) / n / 1e3 * launches, ops
+
+
+def phase_batched(psi2, card):
+    """Phase 3d: K1 and K2 over a batch of instances in one launch, at config
+    1's layer shapes and the production shape, B = 8 and 32, Z shared and
+    batched. Per instance, every output bit-identical to the instance's own
+    single launch (K2 with a random and with an expanded cotangent), and
+    within phase 3's tolerances of the batched plain version in float64; one
+    launch a batched call (the counters). With Z shared: the device time of
+    one batched call beside B single launches (:func:`_device_ms_per_call`),
+    the wrapper times, and the bound, B single bounds. Returns the rows."""
+    from rgp_tpu_torch.bench.psi2_times import time_cuda_ms
+    from rgp_tpu_torch.bench.roofline import k1_bound_ms, k2_bound_ms
+
+    dev = torch.device("cuda")
+    rows = []
+    for i, ((T, M, Q), B, shared_z) in enumerate(
+            (shape, B, z) for shape in _BATCHED_SHAPES for B in _BATCHES for z in (True, False)):
+        rng = np.random.default_rng(400 + i)
+        args = _batched_psi2_args(psi2, rng, B, T, M, Q, shared_z)
+        singles = [[x[b].contiguous() for x in args] for b in range(B)]
+        G = torch.as_tensor(rng.standard_normal((B, M, M)), dtype=torch.float32, device=dev)
+        g_exp = torch.ones((1, 1, 1), dtype=torch.float32, device=dev).expand(B, M, M)
+        n1, n2 = psi2.launches, psi2.bwd_launches
+        out = psi2.psi2_time_sum_batched(*args)
+        grads = psi2.psi2_time_sum_bwd_batched(*args, G, out)
+        grads_e = psi2.psi2_time_sum_bwd_batched(*args, g_exp, out)
+        torch.cuda.synchronize()
+        counted = (psi2.launches - n1, psi2.bwd_launches - n2)
+        same = {
+            "k1": all(bit_identical(out[b], psi2.psi2_time_sum(*singles[b])) for b in range(B)),
+            "k2": all(bit_identical([x[b] for x in grads], psi2.psi2_time_sum_bwd(*singles[b], G[b], out[b]))
+                      for b in range(B)),
+            "k2_expanded_cotangent": all(
+                bit_identical([x[b] for x in grads_e], psi2.psi2_time_sum_bwd(*singles[b], g_exp[b], out[b]))
+                for b in range(B)),
+        }
+        args64 = [x.double() for x in args]
+        ref = psi2.psi2_time_sum_batched_plain(*args64)
+        ref2 = psi2.psi2_time_sum_bwd_batched_plain(*args64, G.double(), out.double())
+        k1_worst, k2_worst, ok = 0.0, 0.0, True
+        for b in range(B):
+            k_ok, _, worst = _within(out[b], ref[b], 2e-4, 2e-5)
+            ok &= k_ok
+            k1_worst = max(k1_worst, worst)
+            for a, r in zip(grads, ref2):
+                k_ok, _, worst = _within(a[b], r[b])
+                ok &= k_ok
+                k2_worst = max(k2_worst, worst)
+        row = {"T": T, "M": M, "Q": Q, "B": B, "z": "shared" if shared_z else "batched",
+               "launches_counted": {"k1": counted[0], "k2": counted[1] // 2}, "bit_identical_to_singles": same,
+               "k1_worst_err_over_tol": k1_worst, "k2_worst_err_over_tol": k2_worst}
+        if shared_z:
+            for name, batched, one, bound in (
+                    ("k1", lambda: psi2.psi2_time_sum_batched(*args),
+                     lambda: [psi2.psi2_time_sum(*x) for x in singles], k1_bound_ms(T, M, Q)),
+                    ("k2", lambda: psi2.psi2_time_sum_bwd_batched(*args, G, out),
+                     lambda: [psi2.psi2_time_sum_bwd(*x, G[b], out[b]) for b, x in enumerate(singles)],
+                     k2_bound_ms(T, M, Q))):
+                dev_ms, ops = _device_ms_per_call(batched, 1)
+                singles_ms, singles_ops = _device_ms_per_call(one, B)
+                row[name] = {"device_ms": dev_ms, "device_ops_recorded_per_call": ops,
+                             "singles_device_ms": singles_ms, "singles_device_ops_recorded": singles_ops,
+                             "ms": time_cuda_ms(batched), "singles_ms": time_cuda_ms(one),
+                             "bound_ms": B * bound[0], "bound_by": bound[1]}
+                check(ops <= 1.0, f"batched {name} at {T, M, Q} x {B}: {ops} device ops recorded a call, want "
+                      f"its one launch alone")
+        row["card"] = card
+        print("batched", json.dumps(row))
+        check(counted == (1, 2), f"batched K1/K2 at {T, M, Q} x {B}: launches {counted}, want 1 K1 and 1 K2 a call")
+        check(all(same.values()), f"batched K1/K2 at {T, M, Q} x {B} ({row['z']} Z) differ from single launches: "
+              f"{same}")
+        check(ok, f"batched K1/K2 at {T, M, Q} x {B} ({row['z']} Z) disagree with the batched plain versions: "
+              f"worst err/tol K1 {k1_worst}, K2 {k2_worst}")
+        rows.append(row)
+    return rows
+
+
 def phase_serving(psi2, psi_stats):
     """Phase 4: config 1 in float32 on the card through the port's entry points."""
     from rgp_tpu_torch.data import datasets
@@ -704,7 +845,8 @@ def phase_f32_lane(psi2):
 
 def phase_training(psi2, psi_stats):
     """Phase 5: config-1 training in float32 on the card, through the port's
-    benchmark entry points. Returns the launch counts of the timed call."""
+    benchmark entry points. Returns the launch counts of the timed call and
+    the single-restart step: ms a step of the timed run, device ops a step."""
     from rgp_tpu_torch import train
     from rgp_tpu_torch.bench import config1
     from rgp_tpu_torch.models import rgp
@@ -764,9 +906,89 @@ def phase_training(psi2, psi_stats):
         "whitening_refresh_ms": time_host_ms(lambda: rgp.compute_whitenings(cfg, p, Y, U, block=None), n=10),
     }
     print("training step split", json.dumps(split))
-    profile_device(lambda: train.fit_adam(
+    prof = profile_device(lambda: train.fit_adam(
         lambda q: -rgp.elbo(cfg, q, Y, U, block=None, whitening=wh), params, iters=steps,
         learning_rate=1e-2), "training steps", steps)
+    return counts, {"ms_per_step": result["ms_per_step"], "device_ops_per_step": prof["device_ops_per_step"]}
+
+
+def phase_restarts(psi2, psi_stats, single_step, card):
+    """Phase 5c: config 1's restarts as one batch (``config1.fit_restarts``,
+    ``bench.py``'s ``--restarts``) at ``_P5_RESTARTS`` restarts, float32,
+    ``_P5_RESTART_STEPS`` steps: K1 and K2 one launch a layer a step for all
+    restarts (K1 also one a layer a whitening refresh), the plain path never;
+    every final ELBO finite; ms and device ops a step beside phase 5's single
+    restart; the kept restart's freerun RMSE beside the zero predictor's.
+    Then the same seeds one at a time through ``config1.fit`` for the same
+    steps: each restart's batched final ELBO within the float32 order spread
+    of its own, and the kept restart the same, or else a near tie (the two
+    picks' batched ELBOs within that spread). Returns the launch counts."""
+    from rgp_tpu_torch.bench import config1
+    from rgp_tpu_torch.models import rgp
+    from rgp_tpu_torch.params import leaves_with_paths
+
+    cfg, _, Y, U, Ut, sy, d = config1.setup(torch.float32)
+    n_layers = cfg.n_hidden + 1
+    seeds, iters = range(_P5_RESTARTS), _P5_RESTART_STEPS
+    inits = [rgp.init_params(cfg, Y, U, seed=s, dtype=Y.dtype) for s in seeds]
+    config1.fit_batched(cfg, config1.stack_restarts(inits), Y, U, 2, 1e-2)  # warm-up
+    torch.cuda.synchronize()
+    _c5_zero(psi2, psi_stats)
+    t0 = time.perf_counter()
+    kept, elbos = config1.fit_restarts(cfg, Y, U, iters, 1e-2, seeds)
+    wall = time.perf_counter() - t0
+    counts = _c5_counts(psi2, psi_stats)
+    refreshes = -(-iters // config1.WHITEN_EVERY)
+    want = {"k1": n_layers * (iters + refreshes), "k2": n_layers * iters, "plain_psi2_calls": 0}
+    prof = profile_device(lambda: config1.fit_batched(cfg, config1.stack_restarts(inits), Y, U, 5, 1e-2),
+                          f"config1 restarts as one batch, {len(seeds)} restarts", 5)
+    with torch.no_grad():
+        fm, fv = rgp.freerun(cfg, kept, Y, U, Ut)
+    pred = sy.inverse(fm.double().cpu().numpy())
+
+    # the same seeds one at a time
+    t1 = time.perf_counter()
+    fits = [config1.fit(cfg, p, Y, U, iters, 1e-2) for p in inits]
+    finals = [-float(f.losses[-1]) for f in fits]
+    wall_single = time.perf_counter() - t1
+    kept_single = config1.select_restart(cfg, finals, [f.params for f in fits])
+    # the batched run's kept restart is the sequential restart nearest to it
+    # (different seeds' trained parameters differ at O(1))
+    flat = torch.cat([x.flatten() for _, x in leaves_with_paths(kept)])
+    kept_batched = int(np.argmin([float((torch.cat([x.flatten() for _, x in leaves_with_paths(f.params)]) - flat)
+                                        .abs().max()) for f in fits]))
+    spread = _P5_ELBO_SPREAD
+    row = {
+        "restarts": len(seeds), "steps": iters, "whitening_refreshes": refreshes, "launches": counts,
+        "k1_per_step": (counts["k1"] - n_layers * refreshes) / iters, "k2_per_step": counts["k2"] / iters,
+        "ms_per_step": 1e3 * wall / iters, "device_ops_per_step": prof["device_ops_per_step"],
+        "device_busy_share": prof["device_busy_share"],
+        "single_restart_ms_per_step_phase5": single_step["ms_per_step"],
+        "single_restart_device_ops_per_step_phase5": single_step["device_ops_per_step"],
+        "final_elbos": elbos, "kept": kept_batched,
+        "freerun_rmse_kept": float(np.sqrt(np.mean((pred - d.y_test) ** 2))),
+        "zero_predictor_rmse": float(np.sqrt(np.mean(d.y_test ** 2))),
+        "sequential": {"final_elbos": finals, "kept": kept_single, "seconds": wall_single,
+                       "ms_per_restart_step": 1e3 * wall_single / (iters * len(seeds))},
+        "elbo_gaps_batched_vs_sequential": [a - b for a, b in zip(elbos, finals)],
+        "kept_elbo_gap": elbos[kept_batched] - finals[kept_single], "order_spread": spread, "card": card,
+    }
+    print("config1 restarts", json.dumps(row))
+    if kept_batched != kept_single:
+        print(f"config1 restarts: the guard kept restart {kept_batched} batched and {kept_single} one at a time "
+              f"(batched ELBOs {elbos[kept_batched]} and {elbos[kept_single]})")
+    check(counts == want, f"config1 restarts: launches {counts}, want {want} (one K1 and one K2 a layer a step)")
+    check(all(math.isfinite(e) for e in elbos + finals), f"config1 restarts: a final ELBO is not finite: {row}")
+    check(bool(torch.isfinite(fm).all() and (fv > 0).all()), "config1 restarts: the kept freerun is not finite")
+    far = {r: g for r, g in enumerate(row["elbo_gaps_batched_vs_sequential"]) if not abs(g) <= spread}
+    check(not far, f"config1 restarts: restarts {sorted(far)} end {far} from their sequential runs' final ELBOs, "
+          f"beyond the float32 order spread {spread}")
+    check(abs(row["kept_elbo_gap"]) <= spread,
+          f"config1 restarts: the kept restart's ELBO {elbos[kept_batched]} is {row['kept_elbo_gap']} from the "
+          f"sequential run's {finals[kept_single]}, beyond the float32 order spread {spread}")
+    check(kept_batched == kept_single or abs(elbos[kept_batched] - elbos[kept_single]) <= spread,
+          f"config1 restarts: the guard kept restart {kept_batched} batched and {kept_single} one at a time, "
+          f"and they are no near tie")
     return counts
 
 
@@ -1132,9 +1354,9 @@ def phase_config5_potential(psi2, psi_stats, root, card):
         del batched
         torch.cuda.empty_cache()
     n_layers = cfg32.n_hidden + 1
-    check(counts["auto"] == {"k1": n_layers * _C5_CHAINS, "k2": n_layers * _C5_CHAINS, "plain_psi2_calls": 0},
-          f"auto potential at {_C5_CHAINS} chains: launches {counts['auto']}, want one K1 and one K2 per "
-          f"chain per layer and no plain path")
+    check(counts["auto"] == {"k1": n_layers, "k2": n_layers, "plain_psi2_calls": 0},
+          f"auto potential at {_C5_CHAINS} chains: launches {counts['auto']}, want one K1 and one K2 a layer "
+          f"for all chains (the batched kernels) and no plain path")
     check(counts["scan"]["k1"] == 0 and counts["scan"]["k2"] == 0 and counts["scan"]["plain_psi2_calls"] > 0,
           f"scan potential: launches {counts['scan']}, want the plain path only")
     plain = rows["scan"]
@@ -1347,9 +1569,9 @@ def phase_tempered_loglik(psi2, psi_stats, root, card):
         print("tempered loglik", json.dumps(rows[route]))
         del loglik
         torch.cuda.empty_cache()
-    check(counts["auto"] == {"k1": n_layers * _C5_TEMPERED_PARTICLES, "k2": 0, "plain_psi2_calls": 0},
-          f"tempered loglik auto at {_C5_TEMPERED_PARTICLES} particles: launches {counts['auto']}, want one K1 per "
-          f"particle per layer, no K2 and no plain path")
+    check(counts["auto"] == {"k1": n_layers, "k2": 0, "plain_psi2_calls": 0},
+          f"tempered loglik auto at {_C5_TEMPERED_PARTICLES} particles: launches {counts['auto']}, want one K1 a "
+          f"layer for all particles, no K2 and no plain path")
     check(counts["scan"]["k1"] == 0 and counts["scan"]["k2"] == 0 and counts["scan"]["plain_psi2_calls"] > 0,
           f"tempered loglik scan: launches {counts['scan']}, want the plain path only")
 
@@ -1504,8 +1726,8 @@ def phase_tempered_smc(psi2, psi_stats, root, card):
     if row["truncated"]:
         print(f"tempered smc: TRUNCATED at beta={beta_final:.6g} after {res.n_stages} stages; log_Z covers the "
               f"anneal up to it")
-    check(counts == {"k1": n_layers * _C5_TEMPERED_PARTICLES * evals, "k2": 0, "plain_psi2_calls": 0},
-          f"sample_tempered: launches {counts}, want {n_layers * _C5_TEMPERED_PARTICLES} K1 per evaluation "
+    check(counts == {"k1": n_layers * evals, "k2": 0, "plain_psi2_calls": 0},
+          f"sample_tempered: launches {counts}, want {n_layers} K1 per evaluation of all particles "
           f"({evals}), no K2 and no plain path")
     check(math.isfinite(log_z), f"sample_tempered: log_Z {log_z}")
     check(res.n_stages >= 1 and bool((torch.diff(torch.cat([betas.new_zeros(1), betas])) > 0).all())
@@ -1980,7 +2202,7 @@ def phase_layer_step(psi2, psi_stats):
     return _c5_counts(psi2, psi_stats)
 
 
-def phase_serving_batched(psi2, psi_stats, root):
+def phase_serving_batched(psi2, psi_stats, root, card):
     """Phase 12c: ``serving.serve`` on the anchor (no training): finite
     outputs, element 0 of the batched freerun equal to an unbatched freerun
     of the same inputs under ``_P12_SERVING_RTOL``'s rule (a float64 freerun
@@ -2011,7 +2233,8 @@ def phase_serving_batched(psi2, psi_stats, root):
         row[name] = {"batched_vs_single": gap((means, variances)[i][0], single[i]),
                      "single_vs_f64": gap(single[i], f64[i])}
         row[name]["gate"] = max(_P12_SERVING_RTOL, row[name]["single_vs_f64"])
-    print("serving batched vs single", json.dumps({**row, "launches": counts}))
+    timing = {k: v for k, v in rec["details"].items() if "latency" in k or "steps_per_sec" in k}
+    print("serving batched vs single", json.dumps({**row, "launches": counts, **timing, "card": card}))
     for name, r in row.items():
         check(r["batched_vs_single"] <= r["gate"],
               f"batched freerun element 0: {name}s off the single freerun by {r['batched_vs_single']} of "
@@ -2022,8 +2245,8 @@ def phase_serving_batched(psi2, psi_stats, root):
 
 def phase_multimodality(psi2, psi_stats, card):
     """Phase 12d: ``multimodality.run`` at full width, restarts as one batch:
-    K1 once a restart a layer in every forward (refreshes and the freeruns'
-    posteriors included), K2 once a restart a layer in every backward, the
+    K1 once a layer for all restarts in every forward (refreshes and the
+    freeruns' posteriors included), K2 once a layer in every backward, the
     plain path never; every loss finite; ms and device ops a step, busy share
     and peak memory (phase 5 prints config 1's single-restart step). Then at
     ``_P12_F64_RESTARTS`` restarts in float64 (plain path): the batched step's
@@ -2050,10 +2273,11 @@ def phase_multimodality(psi2, psi_stats, card):
             table = f.read()
     n_layers = 2
     refreshes = iters // 100
-    want = {"k1": R * n_layers * (iters + refreshes + 1), "k2": R * n_layers * iters, "plain_psi2_calls": 0}
-    print("multimodality", json.dumps({**summary, "launches": counts, "want": want}))
+    want = {"k1": n_layers * (iters + refreshes + 1), "k2": n_layers * iters, "plain_psi2_calls": 0}
+    print("multimodality", json.dumps({**summary, "launches": counts, "want": want, "card": card}))
     print("multimodality table\n" + table.strip())
-    check(counts == want, f"multimodality launches {counts}, want {want} (R {R} x {n_layers} layers a pass)")
+    check(counts == want, f"multimodality launches {counts}, want {want} ({n_layers} layers a pass, all {R} "
+          f"restarts in one launch)")
     check(all(math.isfinite(summary[k]) for k in ("rmse_min", "rmse_median", "rmse_max")),
           "multimodality: an RMSE is not finite")
     check(all(math.isfinite(float(r.split(",")[2])) for r in table.strip().splitlines()[1:]),
@@ -2301,10 +2525,12 @@ def main():
     k1_rows = timed("3 (K1)", phase_k1, psi2)
     k2_rows = timed("3 (K2)", phase_k2, psi2)
     timed("3 (VJP)", phase_vjp, psi2, psi_stats)
+    batched_rows = timed("3d (batched K1/K2)", phase_batched, psi2, card)
     serving = timed("4", phase_serving, psi2, psi_stats)
     timed("4 (f32 lane)", phase_f32_lane, psi2)
-    training = timed("5", phase_training, psi2, psi_stats)
+    training, single_step = timed("5", phase_training, psi2, psi_stats)
     timed("5 (f32 lane)", phase_f32_lane_trained, psi2)
+    restarts = timed("5c (restarts as one batch)", phase_restarts, psi2, psi_stats, single_step, card)
     timed("6", phase_golden)
     config2 = timed("7", phase_configs_2_3, psi2, psi_stats)
     config4 = timed("8", phase_config4, psi2, psi_stats, card)
@@ -2326,7 +2552,7 @@ def main():
         "roofline_measure_ops": timed("12a (roofline)", phase_roofline, psi2, psi_stats, card),
         f"layer_step_2shapes_{_P12_LAYER_ITERS}iters": timed("12b (layer step)", phase_layer_step, psi2, psi_stats),
         f"serving_batched_{_P12_SERVING['batch']}": timed("12c (batched serving)", phase_serving_batched, psi2,
-                                                          psi_stats, root)[1],
+                                                          psi_stats, root, card)[1],
         f"multimodality_{_P12_RESTARTS}restarts_{_P12_MM_ITERS}steps": timed(
             "12d (multimodality)", phase_multimodality, psi2, psi_stats, card),
         f"posterior_check_card_{_P12_CARD['chains']}chains": timed("12e (posterior check)", phase_posterior_check,
@@ -2348,6 +2574,10 @@ def main():
 
     def row(name, src, replaces, tpu_kernel, launches, by_path, rows):
         main_row = rows[0]  # (512, 100, 20): config 1's hidden layer
+        key = "k1" if name == "psi2_fwd" else "k2"
+        batched = [{**{k: r[k] for k in ("T", "M", "Q", "B", "z", "launches_counted", "card")},
+                    "bit_identical_to_singles": r["bit_identical_to_singles"][key],
+                    "worst_err_over_tol": r[f"{key}_worst_err_over_tol"], **r.get(key, {})} for r in batched_rows]
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "tpu_kernel": tpu_kernel,
@@ -2359,19 +2589,21 @@ def main():
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None,
             "library_note": "no single PyTorch call computes it",
-            "shapes": rows, "ptxas": ptxas[name], "card": card,
+            "shapes": rows, "batched": batched, "ptxas": ptxas[name], "card": card,
         }
 
     print(json.dumps({"kernels": [
         row("psi2_fwd", "rgp_tpu_torch/csrc/psi2_fwd.cu", "rgp_tpu/ops/pallas/psi2.py:147",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
-            {"training": training["k1"], "serving": serving, "config2_training": config2["k1"],
+            {"training": training["k1"], "serving": serving, "config1_restarts_batched": restarts["k1"],
+             "config2_training": config2["k1"],
              "config4_training": config4["k1"], "svgp_uncertain_elbo": uncertain["k1"],
              "config5_potential_auto": c5_potential["k1"], "config5_sample_nuts_4chains": c5_sample["k1"],
              "tempered_loglik_auto": tempered_ll["k1"], "tempered_smc": tempered["k1"], **by_path(0)}, k1_rows),
         row("psi2_bwd", "rgp_tpu_torch/csrc/psi2_bwd.cu", "rgp_tpu/ops/pallas/psi2.py:274",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_bwd_kernel (_psi2_bwd_raw)", training["k2"],
-            {"training": training["k2"], "serving": 0, "config2_training": config2["k2"],
+            {"training": training["k2"], "serving": 0, "config1_restarts_batched": restarts["k2"],
+             "config2_training": config2["k2"],
              "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"],
              "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"],
              "tempered_loglik_auto": tempered_ll["k2"], "tempered_smc": tempered["k2"], **by_path(1)}, k2_rows),

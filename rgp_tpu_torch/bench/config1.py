@@ -11,10 +11,12 @@ object: ELBO iterations per second of one timed training run, its first and
 last ELBO, the free-simulation RMSE of the best restart, the zero-predictor
 RMSE, and the card's name and power limit.
 
-Restarts are a host loop over init seeds (the JAX package vmaps them), each
-through the same kernels; the best final ELBO is kept behind the degeneracy
-guard and MAD screen of ``bench.py``. There is no CPU fallback: without a card
-this fails.
+Restarts train as one batch, as ``bench.py``'s ``_fit_restarts`` vmaps
+them (:func:`fit_restarts`): the seeds' parameters stacked leaf by leaf, the
+loss ``torch.func.vmap`` of ``-rgp.elbo``, so each layer's Psi2 sum is one K1
+launch for all restarts and one K2 launch in the backward; the best final
+ELBO is kept behind the degeneracy guard and MAD screen of ``bench.py``.
+There is no CPU fallback: without a card this fails.
 """
 
 from __future__ import annotations
@@ -29,10 +31,13 @@ import torch
 
 from .. import train
 from ..data import datasets
+from ..inference.collapsed_vi import Whitening, whitening_basis
 from ..models import rgp
 from ..params import positive
+from ..train import restart, stack_restarts
 
-__all__ = ["WHITEN_EVERY", "setup", "fit", "timed_fit", "fit_restarts", "select_restart", "main"]
+__all__ = ["WHITEN_EVERY", "setup", "fit", "timed_fit", "stack_restarts", "restart_losses", "restart_whitenings",
+           "fit_batched", "fit_restarts", "select_restart", "main"]
 
 # whitening-refresh interval of ``bench.py``: the bases are a stop-gradient
 # preconditioner, refreshed by ``compute_whitenings`` every this many steps
@@ -103,16 +108,54 @@ def select_restart(cfg, elbos, params_list) -> int:
     return int(np.argmax(score if ok.any() else elbos))
 
 
+def restart_losses(cfg, stacked, Y, U, whitenings):
+    """(R,) ``-rgp.elbo`` of each restart in the stacked tree
+    (:func:`rgp_tpu_torch.train.stack_restarts`), at its own whitening bases
+    (stacked the same way), under ``torch.func.vmap``."""
+    return torch.func.vmap(lambda p, wh: -rgp.elbo(cfg, p, Y, U, block=None, whitening=wh, psi_remat=False))(
+        stacked, whitenings)
+
+
+def restart_whitenings(cfg, stacked, Y, U):
+    """Each restart's fresh whitening bases (``rgp.compute_whitenings``),
+    stacked (no gradient). The Psi statistics they read run batched under
+    ``torch.func.vmap`` (one K1 launch a layer for all restarts); each basis
+    is then formed one restart at a time, so that every restart takes the
+    spectral-floor rung it takes alone. The rung is the outcome of a float32
+    trial Cholesky of the whitened Ct, which at config 1's init sits at the
+    edge; formed by batched matmuls, Ct rounds otherwise, and on an H100 the
+    output layer's trial then failed for 6 of 8 restarts where the same
+    restart's own passed (PERF.md, ROADMAP Queue 3)."""
+    with torch.no_grad():
+        inputs = torch.func.vmap(lambda p: rgp._whitening_inputs(cfg, p, Y, U, None))(stacked)
+        per = [[whitening_basis(*(x[r] for x in layer)) for layer in inputs]
+               for r in range(inputs[0][0].shape[0])]
+        return tuple(Whitening(*(torch.stack(xs) for xs in zip(*layer))) for layer in zip(*per))
+
+
+def fit_batched(cfg, stacked, Y, U, iters: int, lr: float) -> train.FitResult:
+    """:func:`fit` for every restart of a stacked tree at once:
+    :func:`rgp_tpu_torch.train.fit_adam` of :func:`restart_losses` (the
+    gradient of their sum is each restart's own, and Adam is elementwise, so
+    each restart gets its own update) under the same cosine decay, each
+    restart's whitening refreshed every :data:`WHITEN_EVERY` steps
+    (:func:`restart_whitenings`). Returns the trained stacked tree and the
+    (iters, R) losses."""
+    return train.fit_adam(lambda p, wh: restart_losses(cfg, p, Y, U, wh), stacked, iters=iters,
+                          learning_rate=train.cosine_decay_schedule(lr, iters, 0.01),
+                          aux_fn=lambda p: restart_whitenings(cfg, p, Y, U), aux_every=WHITEN_EVERY)
+
+
 def fit_restarts(cfg, Y, U, iters: int, lr: float, seeds):
-    """:func:`fit` from each seed's ``init_params`` in ``Y``'s dtype, one after
-    another; returns (the kept restart's params, every restart's final ELBO)."""
-    results = [
-        fit(cfg, rgp.init_params(cfg, Y, U, seed=s, dtype=Y.dtype, device=Y.device), Y, U, iters, lr)
-        for s in seeds
-    ]
-    elbos = (-torch.stack([r.losses[-1] for r in results])).cpu().numpy()
-    best = select_restart(cfg, elbos, [r.params for r in results])
-    return results[best].params, [float(x) for x in elbos]
+    """``bench.py``'s ``_fit_restarts``: every seed's ``init_params`` in
+    ``Y``'s dtype, stacked and trained as one batch (:func:`fit_batched`);
+    returns (the kept restart's params, every restart's final ELBO)."""
+    stacked = stack_restarts([rgp.init_params(cfg, Y, U, seed=s, dtype=Y.dtype, device=Y.device) for s in seeds])
+    res = fit_batched(cfg, stacked, Y, U, iters, lr)
+    elbos = (-res.losses[-1]).cpu().numpy()
+    params = [restart(res.params, r) for r in range(len(elbos))]
+    best = select_restart(cfg, elbos, params)
+    return params[best], [float(x) for x in elbos]
 
 
 def card():
@@ -129,7 +172,7 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=10000)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--restarts", type=int, default=8,
-                    help="init seeds trained one after another; best final ELBO kept for the RMSE")
+                    help="init seeds trained as one batch; best final ELBO kept for the RMSE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("config1: no CUDA device; this benchmark runs on the card only")

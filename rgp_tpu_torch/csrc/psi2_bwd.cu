@@ -81,6 +81,12 @@
 //    the open lever once this FFMA version is measured against its bound.
 //  * The ragged T and M edges are masked in the kernel; nothing is padded on
 //    the host.
+//  * A batch of instances in one launch, as in psi2_fwd.cu: blockIdx.z is
+//    the instance; each input (g and out too) is read through its own batch
+//    stride (0 = shared), and each instance has its own outputs, partials and
+//    ticket counters. The block layout, T split and shared-memory plan are a
+//    single instance's, so every instance's bits equal those of a launch of
+//    its own.
 
 #include <cuda_runtime.h>
 
@@ -92,6 +98,7 @@ constexpr int kThreads = kBM * kWarps;
 constexpr int kMaxQ = 128;  // largest input width the kernel takes
 constexpr int kDS = kBM + 1;  // padded row of the transposed D1 and Gs tiles
 constexpr int kChunk = 32;  // n columns: the streamed chunk is a multiple of this
+constexpr int kMaxBatch = 65535;  // instances a launch takes: gridDim.z's limit
 
 struct BwdArgs {
   const float* base;
@@ -112,7 +119,34 @@ struct BwdArgs {
   float* part_dzc;    // (n_split, M, Q)
   unsigned* tickets;  // n_split counters, then m_tiles counters; 0 between calls
   int T, M, Q, qp, n_split, t_per, nc, nbuf;
+  // the batch: each input's batch stride in elements (0 = shared); every
+  // output, partial and ticket array above is the first instance's of
+  // `batch` dense ones
+  long long sb_base, sb_E, sb_D1, sb_w, sb_Z, sb_g, sb_out;
 };
+
+// a0 with every pointer moved to instance `inst` of the batch
+__device__ __forceinline__ BwdArgs instance(const BwdArgs& a0, size_t inst, int m_tiles) {
+  BwdArgs a = a0;
+  const size_t T = a0.T, M = a0.M, Q = a0.Q;
+  a.base += inst * a0.sb_base;
+  a.E += inst * a0.sb_E;
+  a.D1 += inst * a0.sb_D1;
+  a.w += inst * a0.sb_w;
+  a.Z += inst * a0.sb_Z;
+  a.g += inst * a0.sb_g;
+  a.out += inst * a0.sb_out;
+  a.dbase += inst * T;
+  a.dE += inst * T * M;
+  a.dD1 += inst * M * M;
+  a.dw += inst * T * Q;
+  a.dzc += inst * M * Q;
+  a.part_dbase += inst * m_tiles * T;
+  a.part_dw += inst * m_tiles * T * Q;
+  a.part_dzc += inst * a0.n_split * M * Q;
+  a.tickets += inst * (a0.n_split + m_tiles);
+  return a;
+}
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 // the compile-time width a Q runs at: the rows are padded to it with zeros,
@@ -263,7 +297,8 @@ __device__ void ordered_sum(const float* part, size_t stride, int n_part, float*
 
 template <int QMAX>
 __global__ void __launch_bounds__(kThreads, QMAX <= 32 ? 2 : 1)
-psi2_bwd_kernel(const BwdArgs a) {
+psi2_bwd_kernel(const BwdArgs a0) {
+  const BwdArgs a = instance(a0, blockIdx.z, gridDim.x);
   constexpr int kQP = round4(QMAX);
   constexpr bool kHoldZ = QMAX <= 32;
   constexpr int kUnrollN = 2;  // two n a pass
@@ -466,6 +501,7 @@ int launch(const BwdArgs& a, dim3 grid, size_t bytes, cudaStream_t s) {
 
 extern "C" int rgp_psi2_bwd_max_q() { return kMaxQ; }
 extern "C" int rgp_psi2_bwd_tile_m() { return kBM; }
+extern "C" int rgp_psi2_bwd_max_batch() { return kMaxBatch; }
 
 // (nc, nbuf, shared bytes) of the launch for (M, Q): nc == M means the
 // block's columns are resident, nc < M that they are streamed in chunks.
@@ -476,31 +512,39 @@ extern "C" int rgp_psi2_bwd_plan(int M, int Q, int* out3) {
   return err;
 }
 
-// One launch on `stream`; returns cudaGetLastError() or the first error met
-// (0 = launched). Outputs: dbase (T,), dE (T, M), dD1 (M, M), dw (T, Q),
-// dzc (M, Q). g is read through its strides (g_s0, g_s1), out (M, M) dense.
-// Scratch: part_dbase (m_tiles, T), part_dw (m_tiles, T, Q), part_dzc
-// (n_split, M, Q), with m_tiles = ceil(M / 32); tickets: n_tickets >=
-// n_split + m_tiles unsigned counters, all 0, left 0. All float32, row-major.
+// One launch on `stream` over `batch` instances; returns cudaGetLastError()
+// or the first error met (0 = launched). Instance b reads base + b sb_base
+// (T,), E + b sb_E (T, M), D1 + b sb_D1 (M, M), w + b sb_w (T, Q), Z + b
+// sb_Z (M, Q) and out + b sb_out (M, M), each dense, and g + b sb_g (M, M)
+// through its strides (g_s0, g_s1); a batch stride of 0 shares the input.
+// Outputs, one dense (batch, ...) array each: dbase (T,), dE (T, M), dD1
+// (M, M), dw (T, Q), dzc (M, Q). Scratch, one per instance: part_dbase
+// (m_tiles, T), part_dw (m_tiles, T, Q), part_dzc (n_split, M, Q), with
+// m_tiles = ceil(M / 32); tickets: n_tickets >= batch (n_split + m_tiles)
+// unsigned counters, all 0, left 0. All float32, row-major.
 extern "C" int rgp_psi2_bwd(const float* base, const float* E, const float* D1, const float* w,
                             const float* Z, const float* g, long long g_s0, long long g_s1,
                             const float* out, float* dbase, float* dE, float* dD1, float* dw,
                             float* dzc, float* part_dbase, float* part_dw, float* part_dzc,
                             unsigned* tickets, int n_tickets, int T, int M, int Q, int n_split,
-                            int t_per_split, void* stream) {
+                            int t_per_split, int batch, long long sb_base, long long sb_E,
+                            long long sb_D1, long long sb_w, long long sb_Z, long long sb_g,
+                            long long sb_out, void* stream) {
   const int m_tiles = (M + kBM - 1) / kBM;
   if (T < 1 || M < 1 || Q < 1 || Q > kMaxQ || n_split < 1 || t_per_split < 1 ||
       (long long)n_split * t_per_split < T || (long long)(n_split - 1) * t_per_split >= T ||
-      n_tickets < n_split + m_tiles) {
+      batch < 1 || batch > kMaxBatch || n_tickets < (long long)batch * (n_split + m_tiles) ||
+      sb_base < 0 || sb_E < 0 || sb_D1 < 0 || sb_w < 0 || sb_Z < 0 || sb_g < 0 || sb_out < 0) {
     return (int)cudaErrorInvalidValue;
   }
   BwdArgs a{base, E, D1, w, Z, g, out, g_s0, g_s1, dbase, dE, dD1, dw, dzc,
-            part_dbase, part_dw, part_dzc, tickets, T, M, Q, qmax_of(Q), n_split, t_per_split, 0, 0};
+            part_dbase, part_dw, part_dzc, tickets, T, M, Q, qmax_of(Q), n_split, t_per_split, 0, 0,
+            sb_base, sb_E, sb_D1, sb_w, sb_Z, sb_g, sb_out};
   size_t bytes = 0;
   const int err = plan(M, Q, &a.nc, &a.nbuf, &bytes);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(m_tiles, n_split);
+  const dim3 grid(m_tiles, n_split, batch);
   switch (qmax_of(Q)) {
     case 4: return launch<4>(a, grid, bytes, s);
     case 8: return launch<8>(a, grid, bytes, s);

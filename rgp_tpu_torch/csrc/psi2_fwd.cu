@@ -60,6 +60,14 @@
 //    --use_fast_math.
 //  * The ragged T and M edges are masked in the kernel; nothing is padded on
 //    the host.
+//  * A batch of instances in one launch (the counterpart of pallas_call's
+//    batching rule, which gives a vmapped call a leading grid axis):
+//    blockIdx.z is the instance. Each input is read through its own batch
+//    stride (0 = shared by every instance, as Z is for a batch of sampler
+//    chains); each instance has its own slice of the partials, of out and of
+//    the ticket counters. The tile plan and the T split are a single
+//    instance's, so every instance's bits equal those of a launch of its
+//    own. A single call is the batch of one.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +75,7 @@ namespace {
 
 constexpr int kStage = 32;   // timesteps staged in shared memory at a time
 constexpr int kMaxQ = 128;   // largest input width the kernel takes
+constexpr int kMaxBatch = 65535;  // instances a launch takes: gridDim.z's limit
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 // the compile-time width a Q runs at: the w rows are padded to it with zeros,
@@ -86,9 +95,10 @@ struct FwdArgs {
   const float* D1;
   const float* w;
   const float* Z;
-  float* partial;     // (n_split, n_pairs, B, B)
-  float* out;         // (M, M)
-  unsigned* tickets;  // n_pairs counters; 0 between calls
+  float* partial;     // (batch, n_split, n_pairs, B, B)
+  float* out;         // (batch, M, M)
+  unsigned* tickets;  // batch x n_pairs counters; 0 between calls
+  long long sb_base, sb_E, sb_D1, sb_w, sb_Z;  // the inputs' batch strides, in elements; 0 = shared
   int T, M, Q, n_tiles, n_pairs, n_split, t_per;
 };
 
@@ -117,9 +127,21 @@ psi2_fwd_kernel(const FwdArgs a) {
   __shared__ float em_s[2][kStage * B];
   __shared__ float en_s[2][kStage * B];
   __shared__ int last;
+  // this block's instance of the batch (its rows that every stage reads sit
+  // in shared memory: held in registers across the t loop they pushed the
+  // Q = 20 instance past its 128 registers)
+  __shared__ const float* rows_s[3];  // base, E, w
 
   const int Q = a.Q, M = a.M;
+  const size_t inst = blockIdx.z;
+  const float* D1 = a.D1 + inst * a.sb_D1;
+  const float* Z = a.Z + inst * a.sb_Z;
   const int tid = threadIdx.x;
+  if (tid == 0) {
+    rows_s[0] = a.base + inst * a.sb_base;
+    rows_s[1] = a.E + inst * a.sb_E;
+    rows_s[2] = a.w + inst * a.sb_w;
+  }
   const int tx = tid % TX;
   const int ty = tid / TX;
   // this block's tile pair (ti <= tj), numbered row by row
@@ -145,9 +167,9 @@ psi2_fwd_kernel(const FwdArgs a) {
       const bool live = mr + i < M && nr + j < M;
 #pragma unroll
       for (int q = 0; q < kQP; ++q) {
-        zz[i][j][q] = (live && q < Q) ? a.Z[(mr + i) * Q + q] * a.Z[(nr + j) * Q + q] : 0.f;
+        zz[i][j][q] = (live && q < Q) ? Z[(mr + i) * Q + q] * Z[(nr + j) * Q + q] : 0.f;
       }
-      d1[i][j] = live ? a.D1[(size_t)(mr + i) * M + nr + j] : 0.f;
+      d1[i][j] = live ? D1[(size_t)(mr + i) * M + nr + j] : 0.f;
       acc[i][j] = 0.f;
     }
   }
@@ -158,17 +180,20 @@ psi2_fwd_kernel(const FwdArgs a) {
   }
 
   auto load = [&](int buf, int t0) {
+    const float* base = rows_s[0];
+    const float* E = rows_s[1];
+    const float* w = rows_s[2];
     const int nt = min(kStage, t_end - t0);
     for (int i = tid; i < nt * Q; i += NT) {
       const int tt = i / Q;
       const int q = i - tt * Q;
-      cp_async4(&w_s[buf][tt * kQP + q], a.w + (size_t)(t0 + tt) * Q + q);
+      cp_async4(&w_s[buf][tt * kQP + q], w + (size_t)(t0 + tt) * Q + q);
     }
-    if (tid < nt) cp_async4(&b_s[buf][tid], a.base + t0 + tid);
+    if (tid < nt) cp_async4(&b_s[buf][tid], base + t0 + tid);
     for (int i = tid; i < nt * B; i += NT) {
       const int tt = i / B;
       const int j = i - tt * B;
-      const float* row = a.E + (size_t)(t0 + tt) * M;
+      const float* row = E + (size_t)(t0 + tt) * M;
       if (m0 + j < M) {
         cp_async4(&em_s[buf][i], row + m0 + j);
       } else {
@@ -183,6 +208,7 @@ psi2_fwd_kernel(const FwdArgs a) {
     cp_async_commit();
   };
 
+  __syncthreads();  // rows_s is set
   load(0, t_begin);
   for (int s = 0, t0 = t_begin; t0 < t_end; ++s, t0 += kStage) {
     const int buf = s & 1;
@@ -240,7 +266,11 @@ psi2_fwd_kernel(const FwdArgs a) {
     __syncthreads();  // this buffer is free for the stage after next
   }
 
-  float* part = a.partial + ((size_t)split * a.n_pairs + blockIdx.x) * B * B;
+  // the instance's own partials, output and ticket counters
+  float* partial = a.partial + inst * a.n_split * a.n_pairs * B * B;
+  float* out = a.out + inst * M * M;
+  unsigned* tickets = a.tickets + inst * a.n_pairs;
+  float* part = partial + ((size_t)split * a.n_pairs + blockIdx.x) * B * B;
 #pragma unroll
   for (int i = 0; i < PM; ++i) {
 #pragma unroll
@@ -251,11 +281,11 @@ psi2_fwd_kernel(const FwdArgs a) {
   // order, each thread EP elements at once so their loads are in flight together
   __threadfence();
   __syncthreads();
-  if (tid == 0) last = atomicAdd(a.tickets + blockIdx.x, 1u) == (unsigned)(a.n_split - 1);
+  if (tid == 0) last = atomicAdd(tickets + blockIdx.x, 1u) == (unsigned)(a.n_split - 1);
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* p0 = a.partial + (size_t)blockIdx.x * B * B + tid;
+  const float* p0 = partial + (size_t)blockIdx.x * B * B + tid;
   const size_t stride = (size_t)a.n_pairs * B * B;
   float v[EP];
 #pragma unroll
@@ -275,16 +305,16 @@ psi2_fwd_kernel(const FwdArgs a) {
     const int m = m0 + i / B;
     const int n = n0 + i % B;
     if (m < M && n < M && (!diag || m <= n)) {
-      a.out[(size_t)m * M + n] = v[e];
-      a.out[(size_t)n * M + m] = v[e];
+      out[(size_t)m * M + n] = v[e];
+      out[(size_t)n * M + m] = v[e];
     }
   }
-  if (tid == 0) a.tickets[blockIdx.x] = 0u;
+  if (tid == 0) tickets[blockIdx.x] = 0u;
 }
 
 template <int QMAX>
-int launch(const FwdArgs& a, cudaStream_t s) {
-  psi2_fwd_kernel<QMAX><<<dim3(a.n_pairs, a.n_split), threads_of(QMAX), 0, s>>>(a);
+int launch(const FwdArgs& a, int batch, cudaStream_t s) {
+  psi2_fwd_kernel<QMAX><<<dim3(a.n_pairs, a.n_split, batch), threads_of(QMAX), 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -294,30 +324,38 @@ extern "C" int rgp_psi2_fwd_max_q() { return kMaxQ; }
 // the output tile edge and the blocks per SM the launch bounds aim at, for Q
 extern "C" int rgp_psi2_fwd_tile(int Q) { return tile_of(Q); }
 extern "C" int rgp_psi2_fwd_blocks_per_sm(int Q) { return blocks_per_sm(Q); }
+extern "C" int rgp_psi2_fwd_max_batch() { return kMaxBatch; }
 
-// One launch on `stream`; returns cudaGetLastError() (0 = launched).
-// partial: (n_split, n_pairs, B, B) scratch with B = rgp_psi2_fwd_tile(Q) and
-// n_pairs = n(n+1)/2, n = ceil(M / B); tickets: n_tickets >= n_pairs unsigned
-// counters, all 0, left 0; out: (M, M). All float32, row-major.
+// One launch on `stream` over `batch` instances; returns cudaGetLastError()
+// (0 = launched). Instance b reads base + b sb_base (T,), E + b sb_E (T, M),
+// D1 + b sb_D1 (M, M), w + b sb_w (T, Q) and Z + b sb_Z (M, Q), each dense
+// (a batch stride of 0 shares the input), and writes out + b M^2 (M, M).
+// partial: (batch, n_split, n_pairs, B, B) scratch with B =
+// rgp_psi2_fwd_tile(Q) and n_pairs = n(n+1)/2, n = ceil(M / B); tickets:
+// n_tickets >= batch n_pairs unsigned counters, all 0, left 0. All float32,
+// row-major.
 extern "C" int rgp_psi2_fwd(const float* base, const float* E, const float* D1, const float* w,
                             const float* Z, float* partial, float* out, unsigned* tickets,
                             int n_tickets, int T, int M, int Q, int n_split, int t_per_split,
-                            void* stream) {
+                            int batch, long long sb_base, long long sb_E, long long sb_D1,
+                            long long sb_w, long long sb_Z, void* stream) {
   if (T < 1 || M < 1 || Q < 1 || Q > kMaxQ || n_split < 1 || t_per_split < 1 ||
-      (long long)n_split * t_per_split < T || (long long)(n_split - 1) * t_per_split >= T) {
+      (long long)n_split * t_per_split < T || (long long)(n_split - 1) * t_per_split >= T ||
+      batch < 1 || batch > kMaxBatch || sb_base < 0 || sb_E < 0 || sb_D1 < 0 || sb_w < 0 || sb_Z < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int B = tile_of(Q);
   const int n_tiles = (M + B - 1) / B;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
-  if (n_tickets < n_pairs) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{base, E, D1, w, Z, partial, out, tickets, T, M, Q, n_tiles, n_pairs, n_split, t_per_split};
+  if (n_tickets < (long long)batch * n_pairs) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{base, E, D1, w, Z, partial, out, tickets, sb_base, sb_E, sb_D1, sb_w, sb_Z,
+                  T, M, Q, n_tiles, n_pairs, n_split, t_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (qmax_of(Q)) {
-    case 4: return launch<4>(a, s);
-    case 8: return launch<8>(a, s);
-    case 20: return launch<20>(a, s);
-    case 32: return launch<32>(a, s);
+    case 4: return launch<4>(a, batch, s);
+    case 8: return launch<8>(a, batch, s);
+    case 20: return launch<20>(a, batch, s);
+    case 32: return launch<32>(a, batch, s);
   }
-  return launch<kMaxQ>(a, s);
+  return launch<kMaxQ>(a, batch, s);
 }

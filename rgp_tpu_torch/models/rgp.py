@@ -301,11 +301,14 @@ def compute_whitenings(cfg: RGPConfig, params, Y, U, *, block: Optional[int] = 1
         kerns = [(s.kernel, params["layers"][h]) for h, s in enumerate(cfg.layers)]
         kerns.append((cfg.out_kernel, params["out"]))
         return tuple(whitening_basis(k.K(lp["kern"], lp["Z"])) for k, lp in kerns)
-    out = []
-    for kern, lp, stats, *_ in _layer_stats(cfg, params, Y, U, block):
-        Kmm = kern.K(lp["kern"], lp["Z"])
-        out.append(whitening_basis(Kmm, stats.psi2, 1.0 / positive(_fln(cfg, lp["log_noise"]))))
-    return tuple(out)
+    return tuple(whitening_basis(*x) for x in _whitening_inputs(cfg, params, Y, U, block))
+
+
+def _whitening_inputs(cfg: RGPConfig, params, Y, U, block):
+    """(Kmm, Psi2, beta) of each layer: what the laddered whitening basis
+    of :func:`compute_whitenings` is formed from."""
+    return tuple((kern.K(lp["kern"], lp["Z"]), stats.psi2, 1.0 / positive(_fln(cfg, lp["log_noise"])))
+                 for kern, lp, stats, *_ in _layer_stats(cfg, params, Y, U, block))
 
 
 # ----------------------------------------------------------------- serving

@@ -20,6 +20,17 @@ CUDA tensor they launch the kernel or raise; on a CPU tensor they run
 partition and ordered reduce in plain PyTorch. :class:`RBFPsi2Sum`
 joins them into a ``torch.autograd.Function``; :func:`rbf_psi2_sum` runs the
 precompute in torch (autograd chains through it) and the Function in float32.
+
+The batched forms take a leading batch axis of instances (sampler chains,
+particles, restarts) in one launch, the counterpart of ``pallas_call``'s
+batching rule under ``jax.vmap``: :func:`psi2_time_sum_batched`,
+:func:`psi2_time_sum_bwd_batched` (plain versions
+:func:`psi2_time_sum_batched_plain`, :func:`psi2_time_sum_bwd_batched_plain`:
+the single ones per instance) and the Function :class:`RBFPsi2SumBatched`,
+which :class:`RBFPsi2Sum`'s vmap rule calls. Each instance keeps a single
+call's plan, so its bits are a single launch's. A batch larger than the
+grid's z limit or :data:`_MAX_WORKSPACE` bytes of scratch is cut into
+several launches, each counted.
 """
 
 from __future__ import annotations
@@ -44,6 +55,11 @@ __all__ = [
     "psi2_time_sum_plain",
     "psi2_time_sum_bwd",
     "psi2_time_sum_bwd_plain",
+    "psi2_time_sum_batched",
+    "psi2_time_sum_batched_plain",
+    "psi2_time_sum_bwd_batched",
+    "psi2_time_sum_bwd_batched_plain",
+    "RBFPsi2SumBatched",
     "t_split",
     "bwd_split",
     "fwd_tile",
@@ -66,9 +82,14 @@ _BWD_TILE_M = 32  # kBM in psi2_bwd.cu: m rows per block
 _BWD_STAGE_T = 8  # kWarps in psi2_bwd.cu: timesteps a block takes at a time
 _BWD_BLOCKS_PER_SM = 2  # __launch_bounds__ of psi2_bwd.cu for Q <= 32
 _MAX_WAVES = 4  # more splits only add partial traffic and reduce work
+_MAX_BATCH = 65535  # instances one launch takes: kMaxBatch in both sources (gridDim.z)
+# bytes of per-instance scratch (K1's partial tiles, K2's partials) one batched
+# launch may take; a larger batch is cut into several launches. K1 at config
+# 1's (512, 100, 20) takes 1.06 MB an instance, so 512 particles fit in one.
+_MAX_WORKSPACE = 1 << 30
 
-launches = 0  # times the wrapper launched K1
-bwd_launches = 0  # times the wrapper launched K2
+launches = 0  # times the wrappers launched K1 (a batched call counts its launches, not its instances)
+bwd_launches = 0  # times the wrappers launched K2
 _libs = {}
 _tickets = {}  # (device, stream) -> the kernels' ticket counters, 0 between launches
 
@@ -198,6 +219,25 @@ def psi2_time_sum_bwd_plain(base, E, D1, w, Z, g, out):
     return torch.cat(dbase), torch.cat(dE), dD1, torch.cat(dw), _ordered_sum(dzc_parts)
 
 
+def _instances(args):
+    """The batch's instances: one tuple of the arguments' slices each."""
+    return [tuple(x[i] for x in args) for i in range(args[0].shape[0])]
+
+
+def psi2_time_sum_batched_plain(base, E, D1, w, Z):
+    """Plain PyTorch version of the batched K1: :func:`psi2_time_sum_plain`
+    per instance of the leading batch axis -> (B, M, M)."""
+    return torch.stack([psi2_time_sum_plain(*xs) for xs in _instances((base, E, D1, w, Z))])
+
+
+def psi2_time_sum_bwd_batched_plain(base, E, D1, w, Z, g, out):
+    """Plain PyTorch version of the batched K2: :func:`psi2_time_sum_bwd_plain`
+    per instance of the leading batch axis -> (dbase, dE, dD1, dw, dzC), each
+    with the batch axis first."""
+    per = [psi2_time_sum_bwd_plain(*xs) for xs in _instances((base, E, D1, w, Z, g, out))]
+    return tuple(torch.stack(xs) for xs in zip(*per))
+
+
 def build():
     """Compile each kernel source that is not built yet, all nvcc runs at
     once, and return ``{name: shared library path}``. Each library is keyed
@@ -238,20 +278,21 @@ def _load(name):
         lib = ctypes.CDLL(str(build()[name]))
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "psi2_fwd":
-            lib.rgp_psi2_fwd.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+            lib.rgp_psi2_fwd.argtypes = [vp] * 8 + [ci] * 7 + [cl] * 5 + [vp]
             lib.rgp_psi2_fwd.restype = ci
-            consts = {"rgp_psi2_fwd_max_q": MAX_Q}
+            consts = {"rgp_psi2_fwd_max_q": MAX_Q, "rgp_psi2_fwd_max_batch": _MAX_BATCH}
             for fn, want in (("rgp_psi2_fwd_tile", fwd_tile), ("rgp_psi2_fwd_blocks_per_sm", _fwd_blocks_per_sm)):
                 getattr(lib, fn).argtypes = [ci]
                 getattr(lib, fn).restype = ci
                 if any(getattr(lib, fn)(q) != want(q) for q in range(1, MAX_Q + 1)):
                     raise RuntimeError(f"psi2_fwd.cu and ops/cuda/psi2.py disagree on {fn}")
         else:
-            lib.rgp_psi2_bwd.argtypes = [vp] * 6 + [cl] * 2 + [vp] * 10 + [ci] * 6 + [vp]
+            lib.rgp_psi2_bwd.argtypes = [vp] * 6 + [cl] * 2 + [vp] * 10 + [ci] * 7 + [cl] * 7 + [vp]
             lib.rgp_psi2_bwd.restype = ci
             lib.rgp_psi2_bwd_plan.argtypes = [ci, ci, vp]
             lib.rgp_psi2_bwd_plan.restype = ci
-            consts = {"rgp_psi2_bwd_max_q": MAX_Q, "rgp_psi2_bwd_tile_m": _BWD_TILE_M}
+            consts = {"rgp_psi2_bwd_max_q": MAX_Q, "rgp_psi2_bwd_tile_m": _BWD_TILE_M,
+                      "rgp_psi2_bwd_max_batch": _MAX_BATCH}
         for fn, want in consts.items():
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ci
@@ -284,9 +325,16 @@ def _tickets_for(device, n):
     return buf
 
 
-def _check(base, E, D1, w, Z, g=None, out=None):
-    T, Q = w.shape
-    M = Z.shape[0]
+def _check(base, E, D1, w, Z, g=None, out=None, batch=None):
+    """Raise unless the arguments are what the kernels take: float32 on one
+    device, of matching shapes (with a leading axis of ``batch`` instances
+    when given), dense (batched: dense past the batch axis, whose stride may
+    be anything, 0 included). ``g`` may have any strides."""
+    if batch is not None and batch < 1:
+        raise ValueError(f"psi2 kernel: a batch needs at least one instance, got {batch}")
+    T, Q = w.shape[-2:]
+    M = Z.shape[-2]
+    lead = () if batch is None else (batch,)
     want = {"base": (T,), "E": (T, M), "D1": (M, M), "w": (T, Q), "Z": (M, Q)}
     args = {"base": base, "E": E, "D1": D1, "w": w, "Z": Z}
     if g is not None:
@@ -298,10 +346,10 @@ def _check(base, E, D1, w, Z, g=None, out=None):
             raise ValueError(f"psi2 kernel: {name} is on {x.device}, base on {dev}")
         if x.dtype != torch.float32:
             raise TypeError(f"psi2 kernel: the CUDA kernels take float32, {name} is {x.dtype}")
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"psi2 kernel: {name} has shape {tuple(x.shape)}, want {want[name]}")
+        if tuple(x.shape) != lead + want[name]:
+            raise ValueError(f"psi2 kernel: {name} has shape {tuple(x.shape)}, want {lead + want[name]}")
         # g is read through its strides; every other input densely
-        if name != "g" and not x.is_contiguous():
+        if name != "g" and not (x if batch is None else x[0]).is_contiguous():
             raise ValueError(f"psi2 kernel: {name} is not contiguous")
     if T < 1 or M < 1 or not 1 <= Q <= MAX_Q:
         raise ValueError(f"psi2 kernel: need T, M >= 1 and 1 <= Q <= {MAX_Q}; got T={T} M={M} Q={Q}")
@@ -312,36 +360,122 @@ def _cuda_device(fn, base):
         raise ValueError(f"{fn}: unsupported device {base.device}")
 
 
+def _chunks(n, instance_bytes):
+    """[lo, hi) ranges of a batch of ``n`` instances, one a launch: at most
+    ``_MAX_BATCH`` instances and ``_MAX_WORKSPACE`` bytes of scratch each."""
+    step = max(1, min(_MAX_BATCH, _MAX_WORKSPACE // max(1, instance_bytes)))
+    return [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+
+
+def _at(x, lo, stride):
+    """Address of instance ``lo`` of a float32 argument whose instances are
+    ``stride`` elements apart (0: one instance, or one shared by all)."""
+    return x.data_ptr() + 4 * lo * stride
+
+
+def _fwd(xs, strides, n, out):
+    """K1 over ``n`` checked instances: input i of instance b at
+    ``_at(xs[i], b, strides[i])``, and ``out`` n dense (M, M) outputs. One
+    launch per chunk of the batch (:func:`_chunks`), each counted in
+    ``launches``. Returns ``out``."""
+    global launches
+    T, Q = xs[3].shape[-2:]
+    M = xs[4].shape[-2]
+    n_split, t_per = t_split(T, M, Q)
+    B = fwd_tile(Q)
+    n_pairs = _cdiv(M, B) * (_cdiv(M, B) + 1) // 2
+    part_n = n_split * n_pairs * B * B
+    chunks = _chunks(n, 4 * part_n)
+    width = chunks[0][1] - chunks[0][0]
+    lib = _load("psi2_fwd")
+    dev = out.device
+    with torch.cuda.device(dev):
+        partial = _empty(dev, width, part_n)
+        tickets = _tickets_for(dev, width * n_pairs)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo, hi in chunks:
+            err = lib.rgp_psi2_fwd(
+                *(_at(x, lo, sb) for x, sb in zip(xs, strides)), partial.data_ptr(), _at(out, lo, M * M),
+                tickets.data_ptr(), tickets.numel(), T, M, Q, n_split, t_per, hi - lo, *strides, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"psi2_fwd kernel launch failed with CUDA error {err}")
+            launches += 1
+    return out
+
+
+def _bwd(xs, strides, g_strides, n, grads):
+    """K2 over ``n`` checked instances, as :func:`_fwd`: ``xs`` the seven
+    inputs (base, E, D1, w, Z, g, out), g read through ``g_strides`` within
+    an instance, and ``grads`` the five outputs, n dense instances each. One
+    launch per chunk of the batch, each counted in ``bwd_launches``.
+    Returns ``grads``."""
+    global bwd_launches
+    T, Q = xs[3].shape[-2:]
+    M = xs[4].shape[-2]
+    n_split, t_per = bwd_split(T, M)
+    m_tiles = _cdiv(M, _BWD_TILE_M)
+    chunks = _chunks(n, 4 * (m_tiles * T * (1 + Q) + n_split * M * Q))
+    width = chunks[0][1] - chunks[0][0]
+    lib = _load("psi2_bwd")
+    dev = grads[0].device
+    sizes = (T, T * M, M * M, T * Q, M * Q)  # elements of an instance of each output
+    with torch.cuda.device(dev):
+        parts = _empty(dev, width, m_tiles, T), _empty(dev, width, m_tiles, T, Q), _empty(dev, width, n_split, M, Q)
+        tickets = _tickets_for(dev, width * (n_split + m_tiles))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo, hi in chunks:
+            ptrs = [_at(x, lo, sb) for x, sb in zip(xs, strides)]
+            err = lib.rgp_psi2_bwd(
+                *ptrs[:6], *g_strides, ptrs[6], *(_at(x, lo, k) for x, k in zip(grads, sizes)),
+                *(x.data_ptr() for x in parts), tickets.data_ptr(), tickets.numel(), T, M, Q, n_split, t_per,
+                hi - lo, *strides, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"psi2_bwd kernel launch failed with CUDA error {err}")
+            bwd_launches += 1
+    return grads
+
+
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _empty_grads(dev, T, M, Q, *lead):
+    """K2's five outputs, (*lead, ...) each: dbase, dE, dD1, dw, dzC."""
+    return [_empty(dev, *lead, *shape) for shape in ((T,), (T, M), (M, M), (T, Q), (M, Q))]
+
+
 def psi2_time_sum(base, E, D1, w, Z):
     """sum_t Psi2_t from the precomputed decomposition -> (M, M), exactly
     symmetric.
 
     CUDA tensors: launch K1 (float32 only, one launch) or raise. CPU tensors:
     the plain version."""
-    global launches
     if base.device.type == "cpu":
         return psi2_time_sum_plain(base, E, D1, w, Z)
     _cuda_device("psi2_time_sum", base)
     _check(base, E, D1, w, Z)
-    T, Q = w.shape
     M = Z.shape[0]
-    n_split, t_per = t_split(T, M, Q)
-    B = fwd_tile(Q)
-    n_pairs = _cdiv(M, B) * (_cdiv(M, B) + 1) // 2
-    lib = _load("psi2_fwd")
-    with torch.cuda.device(base.device):
-        partial = torch.empty((n_split, n_pairs, B, B), dtype=torch.float32, device=base.device)
-        out = torch.empty((M, M), dtype=torch.float32, device=base.device)
-        tickets = _tickets_for(base.device, n_pairs)
-        err = lib.rgp_psi2_fwd(
-            base.data_ptr(), E.data_ptr(), D1.data_ptr(), w.data_ptr(), Z.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), tickets.data_ptr(), tickets.numel(), T, M, Q,
-            n_split, t_per, torch.cuda.current_stream(base.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"psi2_fwd kernel launch failed with CUDA error {err}")
-    launches += 1
-    return out
+    return _fwd((base, E, D1, w, Z), (0,) * 5, 1, _empty(base.device, M, M))
+
+
+def psi2_time_sum_batched(base, E, D1, w, Z):
+    """:func:`psi2_time_sum` for each instance of a leading batch axis: base
+    (B, T), E (B, T, M), D1 (B, M, M), w (B, T, Q), Z (B, M, Q) -> (B, M, M).
+    Each input is dense past the batch axis, whose stride may be 0 for an
+    input the instances share (``Z.expand(B, M, Q)``).
+
+    CUDA tensors: launch K1 over the batch (float32 only; one launch for up
+    to 65535 instances and 1 GiB of scratch, else one a chunk) or raise. CPU
+    tensors: the plain version."""
+    if base.device.type == "cpu":
+        return psi2_time_sum_batched_plain(base, E, D1, w, Z)
+    _cuda_device("psi2_time_sum_batched", base)
+    _check(base, E, D1, w, Z, batch=base.shape[0])
+    n, M = base.shape[0], Z.shape[1]
+    args = (base, E, D1, w, Z)
+    return _fwd(args, tuple(x.stride(0) for x in args), n, _empty(base.device, n, M, M))
 
 
 def psi2_time_sum_bwd(base, E, D1, w, Z, g, out):
@@ -352,34 +486,48 @@ def psi2_time_sum_bwd(base, E, D1, w, Z, g, out):
 
     CUDA tensors: launch K2 (float32 only, one launch) or raise. CPU
     tensors: the plain version."""
-    global bwd_launches
     if base.device.type == "cpu":
         return psi2_time_sum_bwd_plain(base, E, D1, w, Z, g, out)
     _cuda_device("psi2_time_sum_bwd", base)
     _check(base, E, D1, w, Z, g, out)
-    T, Q = w.shape
-    M = Z.shape[0]
-    n_split, t_per = bwd_split(T, M)
-    m_tiles = _cdiv(M, _BWD_TILE_M)
-    lib = _load("psi2_bwd")
-    with torch.cuda.device(base.device):
-        def empty(*shape):
-            return torch.empty(shape, dtype=torch.float32, device=base.device)
+    (T, Q), M = w.shape, Z.shape[0]
+    return tuple(_bwd((base, E, D1, w, Z, g, out), (0,) * 7, g.stride(), 1, _empty_grads(base.device, T, M, Q)))
 
-        dbase, dE, dD1, dw, dzc = empty(T), empty(T, M), empty(M, M), empty(T, Q), empty(M, Q)
-        part_dbase, part_dw, part_dzc = empty(m_tiles, T), empty(m_tiles, T, Q), empty(n_split, M, Q)
-        tickets = _tickets_for(base.device, n_split + m_tiles)
-        err = lib.rgp_psi2_bwd(
-            base.data_ptr(), E.data_ptr(), D1.data_ptr(), w.data_ptr(), Z.data_ptr(),
-            g.data_ptr(), g.stride(0), g.stride(1), out.data_ptr(),
-            dbase.data_ptr(), dE.data_ptr(), dD1.data_ptr(), dw.data_ptr(), dzc.data_ptr(),
-            part_dbase.data_ptr(), part_dw.data_ptr(), part_dzc.data_ptr(), tickets.data_ptr(),
-            tickets.numel(), T, M, Q, n_split, t_per, torch.cuda.current_stream(base.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"psi2_bwd kernel launch failed with CUDA error {err}")
-    bwd_launches += 1
-    return dbase, dE, dD1, dw, dzc
+
+def psi2_time_sum_bwd_batched(base, E, D1, w, Z, g, out):
+    """:func:`psi2_time_sum_bwd` for each instance of a leading batch axis:
+    the inputs as :func:`psi2_time_sum_batched` takes them, ``g`` (B, M, M)
+    with any strides and ``out`` (B, M, M) dense past the batch axis -> the
+    five gradients, each (B, ...).
+
+    CUDA tensors: launch K2 over the batch (float32 only; one launch, or one
+    a chunk as the forward) or raise. CPU tensors: the plain version."""
+    if base.device.type == "cpu":
+        return psi2_time_sum_bwd_batched_plain(base, E, D1, w, Z, g, out)
+    _cuda_device("psi2_time_sum_bwd_batched", base)
+    _check(base, E, D1, w, Z, g, out, batch=base.shape[0])
+    (n, T, Q), M = w.shape, Z.shape[1]
+    args = (base, E, D1, w, Z, g, out)
+    return tuple(_bwd(args, tuple(x.stride(0) for x in args), g.stride()[1:], n,
+                      _empty_grads(base.device, T, M, Q, n)))
+
+
+def _vmapped(args, in_dims, n):
+    """A vmap rule's arguments with the vmapped axis first: moved there, or,
+    for an argument that is not batched, expanded to ``n`` (stride 0)."""
+    return [x.expand(n, *x.shape) if d is None else x.movedim(d, 0) for x, d in zip(args, in_dims)]
+
+
+def _dense_trailing(x):
+    """``x``, copied if it is not dense past its leading axis."""
+    return x if x[0].is_contiguous() else x.contiguous()
+
+
+def _once():
+    """Raise in a backward asked to build a graph: K2 has no derivative."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("RBFPsi2Sum (K1/K2) is differentiable once; take second derivatives "
+                           "through the plain path (psi_statistics(prefer='scan'))")
 
 
 class RBFPsi2Sum(torch.autograd.Function):
@@ -398,9 +546,10 @@ class RBFPsi2Sum(torch.autograd.Function):
     ``inputs=`` prunes it and returns a second derivative that silently
     lacks every path through K2.
 
-    Under ``torch.func.vmap`` (a batch of sampler chains) the :meth:`vmap`
-    rule applies the Function once per batch instance: one K1 launch each, and
-    one K2 launch each in the backward. ``Z`` may be batched or shared."""
+    Under ``torch.func.vmap`` (a batch of sampler chains, particles or
+    restarts) the :meth:`vmap` rule is one :class:`RBFPsi2SumBatched` call on
+    the stacked arguments: one K1 launch for the batch, and one K2 launch in
+    the backward. ``Z`` may be batched or shared."""
 
     @staticmethod
     def forward(base, E, D1, w, Z):
@@ -412,19 +561,46 @@ class RBFPsi2Sum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise RuntimeError("RBFPsi2Sum (K1/K2) is differentiable once; take second derivatives "
-                               "through the plain path (psi_statistics(prefer='scan'))")
+        _once()
         base, E, D1, w, Z, out = ctx.saved_tensors
         return psi2_time_sum_bwd(base, E, D1, w, Z, g, out)
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        def instance(i):
-            return [x if d is None else x.select(d, i) for x, d in zip(args, in_dims)]
+        return RBFPsi2SumBatched.apply(*map(_dense_trailing, _vmapped(args, in_dims, info.batch_size))), 0
 
-        outs = [RBFPsi2Sum.apply(*(x.contiguous() for x in instance(i))) for i in range(info.batch_size)]
-        return torch.stack(outs), 0
+
+class RBFPsi2SumBatched(torch.autograd.Function):
+    """:class:`RBFPsi2Sum` over a leading batch axis of instances:
+    ``psi2_time_sum_batched(base, E, D1, w, Z)``, one K1 launch, with
+    ``psi2_time_sum_bwd_batched`` (one K2 launch) as its whole backward. An
+    input with batch stride 0 (an expanded one) is shared by the instances;
+    its gradient comes back per instance, and autograd sums it through the
+    expand. Differentiable once, as :class:`RBFPsi2Sum`.
+
+    Its :meth:`vmap` rule folds an outer vmapped axis into the batch axis, so
+    a vmap of a vmap (chains on each rank of a sharded sampler, say) is still
+    one launch."""
+
+    @staticmethod
+    def forward(base, E, D1, w, Z):
+        return psi2_time_sum_batched(base, E, D1, w, Z)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        _once()
+        base, E, D1, w, Z, out = ctx.saved_tensors
+        return psi2_time_sum_bwd_batched(base, E, D1, w, Z, g, out)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        xs = _vmapped(args, in_dims, info.batch_size)
+        out = RBFPsi2SumBatched.apply(*(_dense_trailing(x.flatten(0, 1)) for x in xs))
+        return out.unflatten(0, xs[0].shape[:2]), 0
 
 
 def rbf_psi2_sum(p, Z, mu, s):

@@ -27,8 +27,9 @@ The samplers take a BATCHED potential, ``(C, dim) -> (C,)``:
 :func:`make_rgp_potential` builds it as ``torch.func.vmap`` of the
 single-chain forward, so one ``torch.autograd.grad`` of the sum gives every
 chain's gradient. Under the vmap the plain Psi2 path runs without per-chunk
-recomputation (``psi_remat=False``) and K1/K2 run once per chain (the vmap
-rule of :class:`rgp_tpu_torch.ops.cuda.psi2.RBFPsi2Sum`).
+recomputation (``psi_remat=False``) and K1/K2 run once a layer for all
+chains, one batched launch each (the vmap rule of
+:class:`rgp_tpu_torch.ops.cuda.psi2.RBFPsi2Sum`).
 """
 
 from __future__ import annotations
@@ -217,8 +218,9 @@ def make_rgp_loglik(cfg, params, Y, U, *, psi_prefer: str = "auto", block: Optio
     SMC's likelihood, ``rgp.elbo`` of each hyperparameter vector with the
     default jitter and a fresh laddered whitening (no prior term), as
     ``torch.func.vmap`` of one vector's bound run under ``torch.no_grad()``.
-    On float32 CUDA with ``psi_prefer="auto"`` each layer's Psi2 sum is one K1
-    launch per vector (the vmap rule of ``RBFPsi2Sum``); ``"scan"`` takes the
+    On float32 CUDA with ``psi_prefer="auto"`` each layer's Psi2 sum is one
+    batched K1 launch for all vectors (the vmap rule of ``RBFPsi2Sum``);
+    ``"scan"`` takes the
     plain chunked path at ``block``."""
     hyper_elbo, flat0, unravel = _hyper_elbo(cfg, params, Y, U, block=block, psi_prefer=psi_prefer)
     batched = torch.func.vmap(lambda v: hyper_elbo(v, False))

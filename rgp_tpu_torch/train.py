@@ -5,8 +5,9 @@
   ``aux_every`` steps.
 * :func:`fit_minibatch`: Adam on minibatches drawn with replacement, with an
   optional natural-gradient block (config 4's q(u)).
-* :func:`optimize_restarts`: :func:`fit_adam` from several inits, the best
-  final loss kept.
+* :func:`optimize_restarts`: Adam from several inits trained as one batch
+  (:func:`stack_restarts`, ``torch.func.vmap`` of the loss), the best final
+  loss kept.
 * :func:`fit_scg` and :func:`fit_scipy_lbfgs`: scaled conjugate gradients and
   scipy's L-BFGS-B over the flat vector of :func:`rgp_tpu_torch.params.ravel`.
 
@@ -35,8 +36,8 @@ import torch
 from .params import leaves_with_paths, ravel, with_leaves
 
 __all__ = ["FitResult", "OptaxAdam", "batch_indices", "fit_adam", "fit_minibatch", "fit_scg", "fit_scipy_lbfgs",
-           "optimize_restarts", "freeze_mask", "cosine_decay_schedule", "leaves_with_paths",
-           "with_leaves"]
+           "optimize_restarts", "stack_restarts", "restart", "freeze_mask", "cosine_decay_schedule",
+           "leaves_with_paths", "with_leaves"]
 
 
 class FitResult(NamedTuple):
@@ -134,6 +135,10 @@ def fit_adam(
     updates run (the JAX package's ``fit_adam`` pads the last ``aux_every``
     chunk and applies the padded updates: ROADMAP.md Queue 3).
 
+    A loss with a shape (e.g. (R,) for R restarts stacked on a leading axis,
+    :func:`stack_restarts`) is summed for the gradient, so each independent
+    instance gets its own gradient, and ``losses`` is then (iters, R).
+
     ``params`` is not modified; the result holds detached copies.
     """
     leaves, p = _trainable(params)
@@ -148,13 +153,25 @@ def fit_adam(
             with torch.no_grad():
                 aux = aux_fn(p)
         loss = loss_fn(p) if aux_fn is None else loss_fn(p, aux)
-        grads = _grads(loss, leaves, fixed)
-        losses = _losses_for(losses, iters, loss)
+        grads = _grads(loss.sum(), leaves, fixed)
+        losses = _losses_for(losses, (iters, *loss.shape), loss)
         losses[i] = loss.detach()
         opt.step(grads, i)
     if losses is None:
         losses = torch.empty(0, dtype=leaves[0].dtype, device=leaves[0].device)
     return FitResult(params=with_leaves(params, [x.detach() for x in leaves]), losses=losses)
+
+
+def stack_restarts(trees):
+    """One tree whose leaves are the ``trees``' leaves stacked on a leading
+    restart axis."""
+    per = [[x for _, x in leaves_with_paths(t)] for t in trees]
+    return with_leaves(trees[0], [torch.stack(xs) for xs in zip(*per)])
+
+
+def restart(stacked, r: int):
+    """Restart ``r`` of a tree stacked by :func:`stack_restarts`."""
+    return with_leaves(stacked, [x[r] for _, x in leaves_with_paths(stacked)])
 
 
 def optimize_restarts(
@@ -166,18 +183,25 @@ def optimize_restarts(
     learning_rate=1e-2,
     accept_fn: Optional[Callable] = None,
 ) -> FitResult:
-    """:func:`fit_adam` from ``init_fn(seed)`` for each seed, one after
-    another (the JAX package vmaps them into one scan), and the fit with the
-    least final loss returned. ``accept_fn(params) -> bool`` (a tensor or a
-    Python bool) vetoes a restart before selection; if it vetoes them all,
-    the least final loss wins regardless."""
-    fits = [fit_adam(loss_fn, init_fn(s), iters=iters, learning_rate=learning_rate) for s in seeds]
-    final = torch.stack([f.losses[-1] for f in fits])
+    """Adam from ``init_fn(seed)`` for every seed, all restarts trained as one
+    batch, as the JAX package's ``vmap`` of one scan: the inits stacked leaf
+    by leaf (:func:`stack_restarts`), each step the gradient of the sum of
+    ``torch.func.vmap(loss_fn)`` over the restarts (each restart's own
+    gradient) and one :class:`OptaxAdam` step on the stacked leaves (Adam is
+    elementwise, so each restart gets its own update). The restart with the
+    least final loss is returned, with its losses. ``accept_fn(params) ->
+    bool`` (a tensor or a Python bool), vmapped over the restarts, vetoes a
+    restart before selection; if it vetoes them all, the least final loss
+    wins regardless."""
+    stacked = stack_restarts([init_fn(s) for s in seeds])
+    params_b, losses = fit_adam(torch.func.vmap(loss_fn), stacked, iters=iters, learning_rate=learning_rate)
+    final = losses[-1]
     if accept_fn is not None:
-        ok = torch.stack([torch.as_tensor(accept_fn(f.params), device=final.device) for f in fits])
+        ok = torch.func.vmap(lambda q: torch.as_tensor(accept_fn(q)))(params_b).to(final.device)
         score = torch.where(ok, final, torch.full_like(final, float("inf")))
         final = torch.where(ok.any(), score, final)
-    return fits[int(torch.argmin(final))]
+    best = int(torch.argmin(final))
+    return FitResult(params=restart(params_b, best), losses=losses[:, best])
 
 
 def batch_indices(data, iters: int, batch_size: int, *, generator: Optional[torch.Generator] = None,

@@ -6,6 +6,11 @@ bench.py's guard sits inside ``_fit_restarts`` after a vmapped fit. The
 restart test runs that function itself with the fit replaced by hand-made
 final ELBOs and noise values (``jax.vmap`` patched for the call), so the
 reference is bench.py's own selection code, not a copy of it.
+
+``config1.fit_restarts`` (restarts trained as one batch) against
+``bench._fit_restarts`` itself, unpatched, in float64 on config 1 cut small
+(T=128, M=16, 4 seeds, 200 steps, two whitening refreshes): every final
+ELBO at rtol 1e-6 (the golden trajectory's gate) and the same restart kept.
 """
 
 import jax
@@ -22,6 +27,36 @@ from rgp_tpu_torch.bench import config1
 from rgp_tpu_torch.models import rgp as tr
 
 _R, _T, _Q = 5, 7, 1
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def test_fit_restarts_matches_bench():
+    T, M, seeds, iters = 128, 16, range(4), 200
+    d = jd.actuator()
+    Y = Standardizer.fit(d.y_train).transform(d.y_train)[:T]
+    U = Standardizer.fit(d.u_train).transform(d.u_train)[:T]
+    kw = dict(wins=[0, 10], u_win=10, y_dim=1, u_dim=1, num_inducing=M)
+    ref_p, ref_e = bench._fit_restarts(jr.deep_rgp_config(**kw), jnp.asarray(Y), jnp.asarray(U), iters, 1e-2,
+                                       seeds, jnp.float64)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ours_p, ours_e = config1.fit_restarts(tr.deep_rgp_config(**kw), torch.tensor(Y), torch.tensor(U), iters,
+                                              1e-2, seeds)
+    finally:
+        torch.set_num_threads(n)
+    np.testing.assert_allclose(ours_e, ref_e, rtol=1e-6)
+    # the kept restart: its parameters are bench.py's kept ones (another
+    # restart's differ at O(1))
+    for a, b in zip(_leaves(ours_p), _leaves(ref_p)):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-8)
 
 
 def test_setup_matches_bench():

@@ -13,7 +13,15 @@ symmetric), K2 takes the cotangent with any strides and gives the same bits
 as for its dense copy. The CUDA kernels themselves are held against the
 plain versions on the card by the tests marked ``cuda`` (one device launch a
 call, bit-identical reruns) and by chip_smoke.py.
+
+The batched forms (a leading batch axis, one launch) against ``jax.vmap`` of
+the Pallas kernels in interpret mode, at the single kernels' tolerances,
+with Z shared and batched; the Function under ``torch.func.vmap`` and under
+a vmap of a vmap equal to its instances at rtol 1e-12 in float64, through
+one batched call.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -301,6 +309,130 @@ def test_kernel_argument_checks(rng, bad):
         psi2._check(*args, g, out)
 
 
+def _batched_inputs(rng, B, T, M, Q, shared_z, device="cpu"):
+    """B instances' float32 (base, E, D1, w, Z) on ``device``: one
+    lengthscale shift each, and Z shared (expanded, batch stride 0) or each
+    instance's own."""
+    Z = rng.standard_normal((M, Q))
+    cols = []
+    for b in range(B):
+        mu, s, Zb, _, tp = _inputs(rng, T, M, Q, log_ls_shift=0.1 * b)
+        Zb = Z if shared_z else Zb
+        pre = psi2.rbf_psi2_precompute(tp, torch.tensor(Zb), torch.tensor(mu), torch.tensor(s))
+        cols.append([x.to(torch.float32) for x in (*pre, torch.tensor(Zb))])
+    args = [torch.stack(xs).to(device) for xs in zip(*cols)]
+    if shared_z:
+        args[4] = args[4][0].expand(B, M, Q)
+    return args
+
+
+@pytest.mark.parametrize("shared_z", [True, False])
+def test_plain_batched_k1_k2_match_jax_vmap_interpret(rng, shared_z):
+    """The batched plain K1 and K2 against ``jax.vmap`` of the Pallas kernels
+    (one pallas_call with the batch as a leading grid axis) in interpret
+    mode, at the single kernels' tolerances; each instance's bits are the
+    single plain version's."""
+    B, T, M, Q = 3, 40, 24, 3
+    args = _batched_inputs(rng, B, T, M, Q, shared_z)
+    G = torch.tensor(rng.standard_normal((B, M, M)), dtype=torch.float32)
+    out = psi2.psi2_time_sum_batched(*args)  # CPU tensors -> the plain versions
+    grads = psi2.psi2_time_sum_bwd_batched(*args, G, out)
+    jargs = [jnp.asarray(x.numpy()) for x in args[:4]] + [jnp.asarray(args[4][0].numpy() if shared_z
+                                                                       else args[4].numpy())]
+    axes = (0, 0, 0, 0, None if shared_z else 0)
+    fwd = jax.vmap(functools.partial(_psi2_pallas_raw, bt=8, bm=64, interpret=True), in_axes=axes)
+    bwd = jax.vmap(functools.partial(_psi2_bwd_raw, bt=8, bm=64, interpret=True), in_axes=axes + (0,))
+    np.testing.assert_allclose(out.numpy(), np.asarray(fwd(*jargs)), rtol=2e-4, atol=2e-5)
+    ref = bwd(*jargs, jnp.asarray((G + G.transpose(1, 2)).numpy()))
+    for a, b in zip((grads[0], grads[1], grads[3], grads[4]), ref):
+        assert a.shape[0] == B
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=3e-4, atol=3e-4)
+    for i in range(B):
+        single = [x[i] for x in args]
+        assert torch.equal(out[i], psi2.psi2_time_sum(*single))
+        for a, b in zip(grads, psi2.psi2_time_sum_bwd(*single, G[i], out[i])):
+            assert torch.equal(a[i], b)
+
+
+def _f64_psi2_loss(tp, Z, mu, s, G):
+    def loss(lv, ll):
+        pre = psi2.rbf_psi2_precompute({"log_var": lv, "log_ls": ll}, Z, mu, s)
+        return (psi2.RBFPsi2Sum.apply(*pre, Z) * G).sum()
+
+    return loss
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_psi2_function_under_nested_vmap_equals_instances(rng, monkeypatch, depth):
+    """``RBFPsi2Sum`` in float64 under ``torch.func.vmap`` (depth 1) and a
+    vmap of a vmap (depth 2, the batched Function's own rule folding the
+    outer axis into its batch): values and gradients of every instance equal
+    the unbatched calls at rtol 1e-12, through one batched forward and one
+    batched backward call."""
+    T, M, Q = 30, 9, 3
+    mu, s, Z, _, tp = _inputs(rng, T, M, Q)
+    loss = _f64_psi2_loss(tp, torch.tensor(Z), torch.tensor(mu), torch.tensor(s),
+                          torch.tensor(rng.standard_normal((M, M))))
+    shape = (2, 3) if depth == 2 else (4,)
+    ll = (tp["log_ls"] + 0.1 * torch.tensor(rng.standard_normal(shape + (1,)))).requires_grad_()
+    lv = (tp["log_var"] + 0.1 * torch.tensor(rng.standard_normal(shape))).requires_grad_()
+    calls = {"fwd": 0, "bwd": 0}
+    for name, key in (("psi2_time_sum_batched", "fwd"), ("psi2_time_sum_bwd_batched", "bwd")):
+        def counted(*a, _f=getattr(psi2, name), _k=key):
+            calls[_k] += 1
+            return _f(*a)
+
+        monkeypatch.setattr(psi2, name, counted)
+    f = loss
+    for _ in range(depth):
+        f = torch.func.vmap(f)
+    vals = f(lv, ll)
+    g_lv, g_ll = torch.autograd.grad(vals.sum(), (lv, ll))
+    assert calls == {"fwd": 1, "bwd": 1}
+    for idx in np.ndindex(*shape):
+        a, b = lv[idx].detach().requires_grad_(), ll[idx].detach().requires_grad_()
+        v = loss(a, b)
+        ga, gb = torch.autograd.grad(v, (a, b))
+        np.testing.assert_allclose(float(vals[idx].detach()), float(v.detach()), rtol=1e-12)
+        np.testing.assert_allclose(float(g_lv[idx]), float(ga), rtol=1e-12)
+        np.testing.assert_allclose(g_ll[idx].numpy(), gb.numpy(), rtol=1e-12)
+
+
+def test_batched_kernel_argument_checks():
+    B, T, M, Q = 4, 9, 5, 3
+    args = [torch.zeros(B, T), torch.zeros(B, T, M), torch.zeros(B, M, M), torch.zeros(B, T, Q),
+            torch.zeros(M, Q).expand(B, M, Q)]
+    g, out = torch.zeros(1, 1, 1).expand(B, M, M), torch.zeros(B, M, M)
+    psi2._check(*args, g, out, batch=B)  # a shared (stride-0) Z and an expanded cotangent are taken
+    psi2._check(*args, g.transpose(1, 2), out, batch=B)
+    for bad in ("batch", "trailing", "shape", "dtype"):
+        a = list(args)
+        if bad == "batch":
+            a[0] = torch.zeros(B + 1, T)
+        elif bad == "trailing":
+            a[2] = torch.zeros(B, M, 2 * M)[:, :, ::2]
+        elif bad == "shape":
+            a[3] = torch.zeros(B, T, Q + 1)
+        else:
+            a[1] = a[1].double()
+        with pytest.raises((TypeError, ValueError)):
+            psi2._check(*a, g, out, batch=B)
+    with pytest.raises(ValueError):
+        psi2._check(*(x[:0] for x in args), batch=0)
+
+
+@pytest.mark.parametrize("n,instance_bytes,want", [
+    (8, 1 << 20, [(0, 8)]),
+    (70000, 1, [(0, 65535), (65535, 70000)]),
+    (10, 1 << 28, [(0, 4), (4, 8), (8, 10)]),
+    (3, 1 << 31, [(0, 1), (1, 2), (2, 3)]),
+])
+def test_batch_chunks_respect_the_grid_and_workspace(n, instance_bytes, want):
+    """A batch is one launch unless it passes the grid's z limit or the
+    wrappers' 1 GiB of scratch; then it is cut into launches that cover it."""
+    assert psi2._chunks(n, instance_bytes) == want
+
+
 def _device_launches(fn):
     """Device kernels, copies and fills torch.profiler records in one call of fn."""
     from torch.profiler import ProfilerActivity, profile
@@ -413,9 +545,9 @@ def test_psi2_function_is_differentiable_once(rng):
 
 @pytest.mark.cuda
 def test_psi2_function_under_vmap_on_card(rng):
-    """On the card the vmap rule launches K1 once per instance and K2 once
-    per instance in the backward; values and gradients against the plain
-    float64 path per instance, at K2's tolerance."""
+    """On the card the vmap rule launches K1 once for the batch and K2 once
+    in the backward; values and gradients against the plain float64 path per
+    instance, at K2's tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     T, M, Q, C = 512, 100, 20, 4
@@ -428,7 +560,7 @@ def test_psi2_function_under_vmap_on_card(rng):
     psi2.rbf_psi2_sum(t32, *args)  # build and load outside the count
     n1, n2 = psi2.launches, psi2.bwd_launches
     (vals, g_lv, g_ll), _ = _vmapped_psi2_loss(t32, *args, G, shifts)
-    assert (psi2.launches - n1, psi2.bwd_launches - n2) == (2 * C, 2 * C)  # the vmap, then the loop
+    assert (psi2.launches - n1, psi2.bwd_launches - n2) == (1 + C, 1 + C)  # the vmap, then the loop
     t64 = {k: v.to(dev) for k, v in tp.items()}
 
     def plain(p, Z_, mu_, s_):
@@ -440,3 +572,28 @@ def test_psi2_function_under_vmap_on_card(rng):
         np.testing.assert_allclose(float(g_lv[c]), float(glv), rtol=3e-4)
         np.testing.assert_allclose(g_ll[c].cpu().numpy(), gll.cpu().numpy(), rtol=3e-4,
                                    atol=3e-4 * float(gll.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_z", [True, False])
+def test_batched_kernels_equal_single_launches_on_card(rng, shared_z):
+    """Batched K1 and K2 on the card: one launch for the batch, and every
+    instance's outputs the bits of its own single launch (an expanded
+    cotangent for K2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    B, T, M, Q = 5, 65, 130, 5
+    dev = torch.device("cuda")
+    args = _batched_inputs(rng, B, T, M, Q, shared_z, dev)
+    assert args[4].stride(0) == 0 if shared_z else args[4].is_contiguous()
+    g = torch.tensor(rng.standard_normal((1, 1, 1)), dtype=torch.float32, device=dev).expand(B, M, M)
+    psi2.psi2_time_sum(*[x[0] for x in args])  # build and load outside the count
+    n1, n2 = psi2.launches, psi2.bwd_launches
+    out = psi2.psi2_time_sum_batched(*args)
+    grads = psi2.psi2_time_sum_bwd_batched(*args, g, out)
+    assert (psi2.launches - n1, psi2.bwd_launches - n2) == (1, 1)
+    for i in range(B):
+        single = [x[i].contiguous() for x in args]
+        assert torch.equal(out[i], psi2.psi2_time_sum(*single))
+        for a, b in zip(grads, psi2.psi2_time_sum_bwd(*single, g[i], out[i])):
+            assert torch.equal(a[i], b)

@@ -373,6 +373,33 @@ def test_optimize_restarts_matches_jax():
     assert float(ours.params["x"][0]) < 0
 
 
+def test_fit_adam_on_a_vector_loss_trains_each_instance_as_alone():
+    """A loss of shape (R,) (``torch.func.vmap`` over instances stacked by
+    ``stack_restarts``), with an ``aux_fn`` refresh: each instance's losses
+    and parameters equal its own ``fit_adam`` (float64, rtol 1e-12), and the
+    losses are (iters, R). The restart paths (``optimize_restarts``,
+    ``config1.fit_batched``) train through this."""
+    tl = _quadratic(torch)
+    inits = [{"x": torch.tensor(np.linspace(0.1, 0.9, 6).reshape(2, 3) * (1 + r)),
+              "y": torch.tensor([1.5 - r, -0.5 + 0.3 * r])} for r in range(3)]
+    kw = dict(iters=7, learning_rate=train.cosine_decay_schedule(0.05, 7, 0.01), aux_every=3)
+
+    def loss(p, a):
+        return tl(p) * a
+
+    def aux(p):
+        return 1.0 + 0.1 * p["y"].sum(-1)
+
+    batched = train.fit_adam(torch.func.vmap(loss), train.stack_restarts(inits), aux_fn=aux, **kw)
+    assert batched.losses.shape == (7, 3)
+    for r, p in enumerate(inits):
+        alone = train.fit_adam(loss, p, aux_fn=aux, **kw)
+        np.testing.assert_allclose(batched.losses[:, r].numpy(), alone.losses.numpy(), rtol=1e-12)
+        for (path, a), (_, b) in zip(train.leaves_with_paths(train.restart(batched.params, r)),
+                                     train.leaves_with_paths(alone.params)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-14, err_msg=path)
+
+
 def test_fit_adam_runs_exactly_iters_where_jax_pads_the_last_chunk():
     """ROADMAP.md Queue 3: with ``aux_fn`` and ``iters`` not a multiple of
     ``aux_every``, the JAX package's ``fit_adam`` runs whole chunks and keeps
