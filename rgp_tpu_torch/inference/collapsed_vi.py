@@ -26,6 +26,7 @@ from ..kernels import Kernel
 from ..linalg import cho_solve, hdot, jitchol, log_det_from_chol, solve_triangular
 from ..ops.psi_stats import PsiStats, psi01, psi2_per_t
 from ..params import positive
+from ..utils.profiling import annotate
 
 __all__ = [
     "collapsed_bound",
@@ -274,10 +275,12 @@ def predict_quantiles(mean, var, quantiles=(2.5, 97.5)):
 def predict_uncertain(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, mu_star,
                       s_star=None, *, include_noise: bool = False):
     """Moment-matched predictive at q(x*) = N(mu*, diag(s*)) (batch over rows).
-    Returns (mean (T*, D), var (T*, D))."""
+    Returns (mean (T*, D), var (T*, D)). The Psi terms are profiled as the
+    region ``psi.per_t``."""
     noise = positive(log_noise)
-    psi0, psi1 = psi01(kern, kp, Z, mu_star, s_star)
-    p2t = psi2_per_t(kern, kp, Z, mu_star, s_star)  # (T*, M, M)
+    with annotate("psi.per_t"):
+        psi0, psi1 = psi01(kern, kp, Z, mu_star, s_star)
+        p2t = psi2_per_t(kern, kp, Z, mu_star, s_star)  # (T*, M, M)
     mean = hdot(psi1, post.alpha)  # (T*, D)
     quad = torch.einsum("md,tmn,nd->td", post.alpha, p2t, post.alpha)
     trace_term = torch.einsum("mn,tnm->t", post.woodbury_inv, p2t)  # (T*,)

@@ -39,6 +39,7 @@ from ..inference.collapsed_vi import collapsed_bound, posterior, predict_uncerta
 from ..kernels import RBF, Kernel
 from ..ops.psi_stats import psi_statistics
 from ..params import np_positive_inv, positive
+from ..utils.profiling import annotate
 from .encoder import init_mlp, mlp_apply
 from .sparse_gp import host, kmeans_init
 
@@ -353,8 +354,10 @@ def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test, *, moment_match: b
     (``init_from_train_tail``; else means 0 and variances 1); with
     ``moment_match`` every step goes through the psi-statistics with the
     accumulated state uncertainty, else it plugs in the means alone. Returns
-    (y_means (T*, Dy), y_vars (T*, Dy))."""
-    posts, _ = _posteriors(cfg, params, Y_train, U_train)
+    (y_means (T*, Dy), y_vars (T*, Dy)). Profiled as the regions
+    ``rgp.posteriors`` and ``rgp.freerun.step`` (one a test step)."""
+    with annotate("rgp.posteriors"):
+        posts, _ = _posteriors(cfg, params, Y_train, U_train)
     H = cfg.n_hidden
     mus, lams = _hidden_moments(cfg, params, Y_train, U_train)
 
@@ -383,39 +386,40 @@ def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test, *, moment_match: b
     fl_out = _fln(cfg, op["log_noise"])
     y_means, y_vars = [], []
     for i in range(Uw.shape[0]):
-        new_mu, new_s = [], []
-        for h, spec in enumerate(cfg.layers):
-            lp = params["layers"][h]
-            L = spec.win
-            own_mu = bufs_mu[h][:L].reshape(1, -1)
-            own_s = bufs_s[h][:L].reshape(1, -1)
-            if h == 0:
-                low_mu = Uw[i].reshape(1, -1)
-                low_s = torch.zeros_like(low_mu)
-            else:
-                q_lo = cfg.layers[h - 1].q_dim
-                low_mu = _window(new_mu[h - 1], bufs_mu[h - 1], L, q_lo)
-                low_s = _window(new_s[h - 1], bufs_s[h - 1], L, q_lo)
-            x_mu = torch.cat([own_mu, low_mu], dim=-1)
-            x_s = torch.cat([own_s, low_s], dim=-1)
-            m, v = predict_uncertain(
-                spec.kernel, lp["kern"], lp["Z"], fl_noise[h], posts[h],
-                x_mu, x_s if moment_match else None, include_noise=True,
-            )
-            new_mu.append(m[0])
-            new_s.append(v[0])
+        with annotate("rgp.freerun.step"):
+            new_mu, new_s = [], []
+            for h, spec in enumerate(cfg.layers):
+                lp = params["layers"][h]
+                L = spec.win
+                own_mu = bufs_mu[h][:L].reshape(1, -1)
+                own_s = bufs_s[h][:L].reshape(1, -1)
+                if h == 0:
+                    low_mu = Uw[i].reshape(1, -1)
+                    low_s = torch.zeros_like(low_mu)
+                else:
+                    q_lo = cfg.layers[h - 1].q_dim
+                    low_mu = _window(new_mu[h - 1], bufs_mu[h - 1], L, q_lo)
+                    low_s = _window(new_s[h - 1], bufs_s[h - 1], L, q_lo)
+                x_mu = torch.cat([own_mu, low_mu], dim=-1)
+                x_s = torch.cat([own_s, low_s], dim=-1)
+                m, v = predict_uncertain(
+                    spec.kernel, lp["kern"], lp["Z"], fl_noise[h], posts[h],
+                    x_mu, x_s if moment_match else None, include_noise=True,
+                )
+                new_mu.append(m[0])
+                new_s.append(v[0])
 
-        W = cfg.out_win
-        q_top = cfg.layers[-1].q_dim
-        top_mu = _window(new_mu[-1], bufs_mu[-1], W, q_top)
-        top_s = _window(new_s[-1], bufs_s[-1], W, q_top)
-        ym, yv = predict_uncertain(
-            cfg.out_kernel, op["kern"], op["Z"], fl_out, posts[-1],
-            top_mu, top_s if moment_match else None, include_noise=True,
-        )
-        bufs_mu = [torch.cat([new_mu[h][None, :], bufs_mu[h][:-1]], dim=0) for h in range(H)]
-        bufs_s = [torch.cat([new_s[h][None, :], bufs_s[h][:-1]], dim=0) for h in range(H)]
-        y_means.append(ym[0])
-        y_vars.append(yv[0])
+            W = cfg.out_win
+            q_top = cfg.layers[-1].q_dim
+            top_mu = _window(new_mu[-1], bufs_mu[-1], W, q_top)
+            top_s = _window(new_s[-1], bufs_s[-1], W, q_top)
+            ym, yv = predict_uncertain(
+                cfg.out_kernel, op["kern"], op["Z"], fl_out, posts[-1],
+                top_mu, top_s if moment_match else None, include_noise=True,
+            )
+            bufs_mu = [torch.cat([new_mu[h][None, :], bufs_mu[h][:-1]], dim=0) for h in range(H)]
+            bufs_s = [torch.cat([new_s[h][None, :], bufs_s[h][:-1]], dim=0) for h in range(H)]
+            y_means.append(ym[0])
+            y_vars.append(yv[0])
     return torch.stack(y_means), torch.stack(y_vars)
 

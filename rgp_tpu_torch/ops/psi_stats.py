@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels import RBF, Bias, Kernel, Linear, Prod, Sum, White, kern_slice
 from ..linalg import hdot
 from ..params import positive
+from ..utils.profiling import annotate
 from .cuda.psi2 import rbf_psi2_sum
 
 __all__ = ["PsiStats", "psi_statistics", "psi01", "psi2_per_t", "has_closed_psi"]
@@ -438,13 +439,15 @@ def psi_statistics(kern: Kernel, p, Z, mu, s=None, *, block: Optional[int] = 128
     chunked path on every device, honouring ``block``). ``remat``: recompute
     each plain chunk in the backward; pass False under ``torch.func.vmap``
     (see the module note). Kernels without closed-form psi statistics
-    (:func:`has_closed_psi`) take certain inputs only."""
-    if s is None:
-        K = kern.K(p, mu, Z)
-        return PsiStats(kern.Kdiag(p, mu), K, hdot(K.T, K))
-    s = _broadcast_s(mu, s)
-    psi0, psi1 = _psi01(kern, p, Z, mu, s)
-    return PsiStats(psi0, psi1, _psi2_sum(kern, p, Z, mu, s, block, prefer, remat))
+    (:func:`has_closed_psi`) take certain inputs only. Profiled as the
+    region ``psi.stats``."""
+    with annotate("psi.stats"):
+        if s is None:
+            K = kern.K(p, mu, Z)
+            return PsiStats(kern.Kdiag(p, mu), K, hdot(K.T, K))
+        s = _broadcast_s(mu, s)
+        psi0, psi1 = _psi01(kern, p, Z, mu, s)
+        return PsiStats(psi0, psi1, _psi2_sum(kern, p, Z, mu, s, block, prefer, remat))
 
 
 def _psi2_sum(kern, p, Z, mu, s, block, prefer="auto", remat=True):

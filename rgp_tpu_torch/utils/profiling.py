@@ -1,7 +1,10 @@
 """Profiling helpers (port of ``rgp_tpu/utils/profiling.py``): a
 ``torch.profiler`` trace of a code region, exported as a Chrome trace, and
 named regions (``record_function``) that attribute the time of the hot ops
-(Psi statistics, Cholesky, solves) in that trace."""
+in that trace. The serving path records four: ``rgp.posteriors`` and
+``rgp.freerun.step`` (``models/rgp.freerun``), ``psi.stats``
+(``ops/psi_stats.psi_statistics``) and ``psi.per_t``
+(``inference/collapsed_vi.predict_uncertain``)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 __all__ = ["trace", "annotate"]
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -29,5 +34,9 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """A named region of the profile, for attributing a block of code."""
+    """A named region of the profile, for attributing a block of code. With
+    no profiler running it returns a shared null context and records
+    nothing, so a region on the hot path costs one check."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return record_function(name)

@@ -47,6 +47,38 @@ def test_annotate_appears_in_the_trace(tmp_path):
     assert "psi_stats" in (tmp_path / "trace.json").read_text()
 
 
+def test_annotate_is_recorded_under_a_profiler_started_by_hand():
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()  # as a benchmark's tracer starts it, with no ``with`` block
+    try:
+        with annotate("rgp.freerun.step"):
+            x = torch.ones(4).sum()
+    finally:
+        prof.stop()
+    assert float(x) == 4.0
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.is_user_annotation()]
+    assert names.count("rgp.freerun.step") == 1
+
+
+def test_annotate_without_a_profiler_enters_no_record_function(monkeypatch):
+    import contextlib
+
+    from rgp_tpu_torch.utils import profiling
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    assert not torch._C._autograd._profiler_enabled()
+    region = annotate("psi.per_t")
+    assert isinstance(region, contextlib.nullcontext) and region is annotate("rgp.posteriors")
+    with region:
+        x = torch.ones(4).sum()
+    assert float(x) == 4.0
+
+
 def test_plotting_helpers_render():
     import matplotlib
 
