@@ -7,11 +7,12 @@ On the flagship config-1 model (``bench.sampling._flagship``):
     ``rgp.freerun`` request, the posteriors computed once, then one
     moment-matched step at a time from the host;
   * one-step-ahead ``predict_train`` latency over the training span;
-  * batched serving at width ``--batch``: ``torch.func.vmap`` of
-    ``rgp.freerun`` over that many copies of the test inputs, each perturbed
-    by 0.01 of a standard normal from a seeded ``torch.Generator`` on the
-    card. The posteriors take the unbatched model, so they run once (K1 once
-    a layer); the steps run batched. The aggregate steps/s is the card's
+  * batched serving at width ``--batch``: one ``rgp.freerun`` of a batch of
+    that many copies of the test inputs, each perturbed by 0.01 of a
+    standard normal from a seeded ``torch.Generator`` on the card. The
+    posteriors take the unbatched model, so they run once (K1 once a
+    layer); the steps run batched, as ``torch.func.vmap`` of one step
+    replayed from captured CUDA graphs. The aggregate steps/s is the card's
     serving throughput.
 
 Each timing ends in ``torch.cuda.synchronize`` (the JAX module's host-read
@@ -47,10 +48,11 @@ def perturbed_inputs(U_test, batch: int):
 
 
 def batched_freerun(cfg, params, Y, U, Us):
-    """``rgp.freerun`` of each of the (B, T*, Du) input sequences ``Us``,
-    under ``torch.func.vmap``: (means (B, T*, Dy), variances (B, T*, Dy))."""
+    """``rgp.freerun`` of the (B, T*, Du) input sequences ``Us`` at once,
+    without grad: (means (B, T*, Dy), variances (B, T*, Dy)). On the card
+    its steps replay captured CUDA graphs."""
     with torch.no_grad():
-        return torch.func.vmap(lambda u: rgp.freerun(cfg, params, Y, U, u))(Us)
+        return rgp.freerun(cfg, params, Y, U, Us)
 
 
 def _sync(dev):

@@ -273,12 +273,13 @@ def predict_quantiles(mean, var, quantiles=(2.5, 97.5)):
 
 
 def predict_uncertain(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, mu_star,
-                      s_star=None, *, include_noise: bool = False):
+                      s_star=None, *, include_noise: bool = False, psi_region=None):
     """Moment-matched predictive at q(x*) = N(mu*, diag(s*)) (batch over rows).
     Returns (mean (T*, D), var (T*, D)). The Psi terms are profiled as the
-    region ``psi.per_t``."""
+    region ``psi.per_t``, or run inside ``psi_region()`` where given (where
+    :class:`rgp_tpu_torch.models.rgp.StepGraphs` cuts a step's graphs)."""
     noise = positive(log_noise)
-    with annotate("psi.per_t"):
+    with annotate("psi.per_t") if psi_region is None else psi_region():
         psi0, psi1 = psi01(kern, kp, Z, mu_star, s_star)
         p2t = psi2_per_t(kern, kp, Z, mu_star, s_star)  # (T*, M, M)
     mean = hdot(psi1, post.alpha)  # (T*, D)

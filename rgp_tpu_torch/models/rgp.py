@@ -21,22 +21,27 @@ with ``amortize_var``, its log-variances). Layers are indexed deepest-first
 :func:`elbo` (and :func:`neg_elbo`, the training loss) is differentiable on
 every device: on float32 CUDA tensors its Psi2 sums run through the kernels K1
 and K2. :func:`freerun` is the serving path: posteriors once, then a
-closed-loop moment-matched rollout, one Python step per test input.
+closed-loop moment-matched rollout, one Python step per test input;
+given a batch of input sequences it rolls them out at once, replaying
+captured CUDA graphs of its steps on the card (:class:`StepGraphs`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from ..data.windows import current_window, lagged, np_current_window, np_lagged
 from ..device import resolve_device
 from ..inference.collapsed_vi import collapsed_bound, posterior, predict_uncertain, whitening_basis
-from ..kernels import RBF, Kernel
+from ..kernels import RBF, Kernel, Prod, Sum
 from ..ops.psi_stats import psi_statistics
 from ..params import np_positive_inv, positive
 from ..utils.profiling import annotate
@@ -44,7 +49,7 @@ from .encoder import init_mlp, mlp_apply
 from .sparse_gp import host, kmeans_init
 
 __all__ = ["LayerSpec", "RGPConfig", "init_params", "elbo", "neg_elbo", "freerun", "predict_train",
-           "deep_rgp_config", "compute_whitenings"]
+           "deep_rgp_config", "compute_whitenings", "StepGraphs", "step_graphs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,79 +352,253 @@ def _window(new, buf, W, q_dim):
     return torch.cat([new[None, :], buf[: W - 1].reshape(-1, q_dim)], dim=0).reshape(1, -1)
 
 
+def _initial_buffers(cfg: RGPConfig, params, Y_train, U_train, like, init_from_train_tail: bool):
+    """The freerun's starting state, (means, variances): per hidden layer a
+    most-recent-first buffer (B, Q_h), B the longer of its own window and
+    the window of the layer above on it; the tails of the trained
+    variational moments, or means 0 and variances 1 in ``like``'s dtype and
+    device."""
+    H = cfg.n_hidden
+    mus, lams = _hidden_moments(cfg, params, Y_train, U_train)
+    buf_lens = [max(spec.win, cfg.layers[h + 1].win if h + 1 < H else cfg.out_win)
+                for h, spec in enumerate(cfg.layers)]
+    if init_from_train_tail:
+        return (tuple(torch.flip(mus[h][-B:], [0]) for h, B in enumerate(buf_lens)),
+                tuple(torch.flip(lams[h][-B:], [0]) for h, B in enumerate(buf_lens)))
+    return (tuple(like.new_zeros((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)),
+            tuple(like.new_ones((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)))
+
+
+def _input_windows(cfg: RGPConfig, U_train, U_test):
+    """(T*, L_u*Du): layer 0's exogenous window at each test step, the first
+    ones reaching back into the training inputs."""
+    Lu = cfg.u_win
+    if Lu == 0:
+        return U_test.new_zeros((U_test.shape[0], 0))
+    U_cat = torch.cat([U_train[-(Lu - 1):], U_test], dim=0) if Lu > 1 else U_test
+    return current_window(U_cat, Lu)[Lu - 1:]
+
+
+def _step_params(cfg: RGPConfig, params):
+    """What a step reads of ``params``: (kernel parameters, Z, floored
+    noise) of each hidden layer, then of the output layer."""
+    return tuple((lp["kern"], lp["Z"], _fln(cfg, lp["log_noise"])) for lp in (*params["layers"], params["out"]))
+
+
+def _step(cfg: RGPConfig, state, u, posts, sp, *, moment_match: bool = True, psi_region=None):
+    """One closed-loop step: from the buffers ``state`` (as
+    :func:`_initial_buffers` gives them) and the step's exogenous window
+    ``u``, (new state, y mean (Dy,), y variance (Dy,)). ``posts`` and ``sp``
+    (:func:`_step_params`) are only read. ``psi_region`` goes to every
+    layer's :func:`predict_uncertain`: :class:`StepGraphs` cuts a step's
+    graphs there."""
+    bufs_mu, bufs_s = state
+    new_mu, new_s = [], []
+    for h, spec in enumerate(cfg.layers):
+        L = spec.win
+        own_mu = bufs_mu[h][:L].reshape(1, -1)
+        own_s = bufs_s[h][:L].reshape(1, -1)
+        if h == 0:
+            low_mu = u.reshape(1, -1)
+            low_s = torch.zeros_like(low_mu)
+        else:
+            q_lo = cfg.layers[h - 1].q_dim
+            low_mu = _window(new_mu[h - 1], bufs_mu[h - 1], L, q_lo)
+            low_s = _window(new_s[h - 1], bufs_s[h - 1], L, q_lo)
+        x_mu = torch.cat([own_mu, low_mu], dim=-1)
+        x_s = torch.cat([own_s, low_s], dim=-1)
+        kp, Z, noise = sp[h]
+        m, v = predict_uncertain(spec.kernel, kp, Z, noise, posts[h], x_mu, x_s if moment_match else None,
+                                 include_noise=True, psi_region=psi_region)
+        new_mu.append(m[0])
+        new_s.append(v[0])
+
+    W = cfg.out_win
+    q_top = cfg.layers[-1].q_dim
+    top_mu = _window(new_mu[-1], bufs_mu[-1], W, q_top)
+    top_s = _window(new_s[-1], bufs_s[-1], W, q_top)
+    kp, Z, noise = sp[-1]
+    ym, yv = predict_uncertain(cfg.out_kernel, kp, Z, noise, posts[-1], top_mu, top_s if moment_match else None,
+                               include_noise=True, psi_region=psi_region)
+    H = cfg.n_hidden
+    bufs_mu = tuple(torch.cat([new_mu[h][None, :], bufs_mu[h][:-1]], dim=0) for h in range(H))
+    bufs_s = tuple(torch.cat([new_s[h][None, :], bufs_s[h][:-1]], dim=0) for h in range(H))
+    return (bufs_mu, bufs_s), ym[0], yv[0]
+
+
 def freerun(cfg: RGPConfig, params, Y_train, U_train, U_test, *, moment_match: bool = True,
             init_from_train_tail: bool = True):
-    """Closed-loop free simulation over test inputs. Each hidden layer's
+    """Closed-loop free simulation over test inputs ``U_test`` (T*, Du), or
+    over each of B input sequences (B, T*, Du) at once. Each hidden layer's
     feedback window starts from the tail of its trained variational means
     (``init_from_train_tail``; else means 0 and variances 1); with
     ``moment_match`` every step goes through the psi-statistics with the
     accumulated state uncertainty, else it plugs in the means alone. Returns
-    (y_means (T*, Dy), y_vars (T*, Dy)). Profiled as the regions
-    ``rgp.posteriors`` and ``rgp.freerun.step`` (one a test step)."""
+    (y_means (T*, Dy), y_vars (T*, Dy)), or (B, T*, Dy) each. Profiled as
+    the regions ``rgp.posteriors`` and ``rgp.freerun.step`` (one a test
+    step).
+
+    The posteriors and the starting buffers are computed once, for every
+    sequence of a batch; a batch's steps are ``torch.func.vmap`` of
+    :func:`_step` over its sequences. On a CUDA device, with grad off, no
+    input that requires grad and kernels whose Psi terms copy nothing from
+    the host (:func:`_capturable`), they replay the CUDA graphs that
+    :data:`step_graphs` captured on the first call of their shapes;
+    elsewhere they run eagerly."""
     with annotate("rgp.posteriors"):
         posts, _ = _posteriors(cfg, params, Y_train, U_train)
-    H = cfg.n_hidden
-    mus, lams = _hidden_moments(cfg, params, Y_train, U_train)
-
-    buf_lens = []
-    for h, spec in enumerate(cfg.layers):
-        need_above = cfg.layers[h + 1].win if h + 1 < H else cfg.out_win
-        buf_lens.append(max(spec.win, need_above))
-
-    # most-recent-first buffers
-    if init_from_train_tail:
-        bufs_mu = [torch.flip(mus[h][-B:], [0]) for h, B in enumerate(buf_lens)]
-        bufs_s = [torch.flip(lams[h][-B:], [0]) for h, B in enumerate(buf_lens)]
-    else:
-        bufs_mu = [U_test.new_zeros((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)]
-        bufs_s = [U_test.new_ones((B, spec.q_dim)) for B, spec in zip(buf_lens, cfg.layers)]
-
-    Lu = cfg.u_win
-    if Lu > 0:
-        U_cat = torch.cat([U_train[-(Lu - 1):], U_test], dim=0) if Lu > 1 else U_test
-        Uw = current_window(U_cat, Lu)[Lu - 1:]
-    else:
-        Uw = U_test.new_zeros((U_test.shape[0], 0))
-
-    fl_noise = [_fln(cfg, lp["log_noise"]) for lp in params["layers"]]
-    op = params["out"]
-    fl_out = _fln(cfg, op["log_noise"])
+    state = _initial_buffers(cfg, params, Y_train, U_train, U_test, init_from_train_tail)
+    sp = _step_params(cfg, params)
+    if U_test.dim() == 3:
+        return _batched_steps(cfg, posts, state, U_train, U_test, sp, moment_match)
+    Uw = _input_windows(cfg, U_train, U_test)
     y_means, y_vars = [], []
     for i in range(Uw.shape[0]):
         with annotate("rgp.freerun.step"):
-            new_mu, new_s = [], []
-            for h, spec in enumerate(cfg.layers):
-                lp = params["layers"][h]
-                L = spec.win
-                own_mu = bufs_mu[h][:L].reshape(1, -1)
-                own_s = bufs_s[h][:L].reshape(1, -1)
-                if h == 0:
-                    low_mu = Uw[i].reshape(1, -1)
-                    low_s = torch.zeros_like(low_mu)
-                else:
-                    q_lo = cfg.layers[h - 1].q_dim
-                    low_mu = _window(new_mu[h - 1], bufs_mu[h - 1], L, q_lo)
-                    low_s = _window(new_s[h - 1], bufs_s[h - 1], L, q_lo)
-                x_mu = torch.cat([own_mu, low_mu], dim=-1)
-                x_s = torch.cat([own_s, low_s], dim=-1)
-                m, v = predict_uncertain(
-                    spec.kernel, lp["kern"], lp["Z"], fl_noise[h], posts[h],
-                    x_mu, x_s if moment_match else None, include_noise=True,
-                )
-                new_mu.append(m[0])
-                new_s.append(v[0])
-
-            W = cfg.out_win
-            q_top = cfg.layers[-1].q_dim
-            top_mu = _window(new_mu[-1], bufs_mu[-1], W, q_top)
-            top_s = _window(new_s[-1], bufs_s[-1], W, q_top)
-            ym, yv = predict_uncertain(
-                cfg.out_kernel, op["kern"], op["Z"], fl_out, posts[-1],
-                top_mu, top_s if moment_match else None, include_noise=True,
-            )
-            bufs_mu = [torch.cat([new_mu[h][None, :], bufs_mu[h][:-1]], dim=0) for h in range(H)]
-            bufs_s = [torch.cat([new_s[h][None, :], bufs_s[h][:-1]], dim=0) for h in range(H)]
-            y_means.append(ym[0])
-            y_vars.append(yv[0])
+            state, ym, yv = _step(cfg, state, Uw[i], posts, sp, moment_match=moment_match)
+        y_means.append(ym)
+        y_vars.append(yv)
     return torch.stack(y_means), torch.stack(y_vars)
 
+
+def _batched_steps(cfg: RGPConfig, posts, bufs, U_train, U_tests, sp, moment_match):
+    """:func:`freerun`'s steps over the (B, T*, Du) sequences ``U_tests``,
+    all from the buffers ``bufs``: (means (B, T*, Dy), variances (B, T*,
+    Dy))."""
+    B = U_tests.shape[0]
+    # materialized, as a graph's static copy of them must be: the same layout picks the same kernels
+    state = tuple(tuple(b.expand(B, *b.shape).contiguous() for b in part) for part in bufs)
+    Uw = torch.func.vmap(lambda u: _input_windows(cfg, U_train, u))(U_tests)
+    step = functools.partial(_step, cfg, moment_match=moment_match)
+    if _capturable(cfg, (Uw, state, posts, sp)):
+        return step_graphs.run(step, (cfg, moment_match), (Uw, state, posts, sp))
+    vstep = torch.func.vmap(step, in_dims=(0, 0, None, None))
+    means, variances = [], []
+    for i in range(Uw.shape[1]):
+        with annotate("rgp.freerun.step"):
+            state, ym, yv = vstep(state, Uw[:, i], posts, sp)
+        means.append(ym)
+        variances.append(yv)
+    return torch.stack(means, dim=1), torch.stack(variances, dim=1)
+
+
+# ------------------------------------------------------- graphed steps
+
+
+def _host_free(kern: Kernel) -> bool:
+    """True where a step's Psi terms of ``kern`` copy nothing from the host:
+    no active dims to index by, and no parts whose cross terms scatter by
+    active dim (Sum, Prod)."""
+    return kern.active_dims is None and not isinstance(kern, (Sum, Prod))
+
+
+def _capturable(cfg: RGPConfig, inputs) -> bool:
+    """Whether a batched :func:`freerun`'s steps on ``inputs`` can replay
+    captured graphs: CUDA tensors, grad off and not required by any input,
+    and every kernel :func:`_host_free`."""
+    leaves = tree_leaves(inputs)
+    return (leaves[0].is_cuda and not torch.is_grad_enabled() and not any(x.requires_grad for x in leaves)
+            and all(_host_free(k) for k in (*(s.kernel for s in cfg.layers), cfg.out_kernel)))
+
+
+class _Chain:
+    """One step's graphs, captured in turn into one memory pool on the
+    current stream: entering begins the first graph, :meth:`cut` ends the
+    graph being captured and begins the next, leaving ends the last."""
+
+    def __init__(self, pool):
+        self.pool, self.graphs = pool, []
+
+    def _next(self):
+        if self.graphs:
+            self.graphs[-1].capture_end()
+        self.graphs.append(torch.cuda.CUDAGraph())
+        self.graphs[-1].capture_begin(pool=self.pool)
+
+    def __enter__(self):
+        self._next()
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs[-1].capture_end()
+
+    @contextlib.contextmanager
+    def cut(self):
+        self._next()
+        yield
+        self._next()
+
+
+class _Captured(NamedTuple):
+    static: list  # the inputs' leaves, refreshed by copy_ each call
+    chains: list  # per step: its graphs, a layer's Psi terms at the odd places
+    means: list  # per step: its (B, Dy) y means in the pool, and its variances
+    variances: list
+
+
+class StepGraphs:
+    """CUDA graphs of a batched :func:`freerun`'s closed-loop steps, one entry
+    a key: the configuration and ``moment_match``, the structure, shapes,
+    strides and dtypes of the step's inputs (so the width and the horizon)
+    and the device. An entry holds static copies of the inputs in their
+    layouts, since a layout picks the kernels (the candidates' input
+    windows, the starting buffers, the posteriors and the step parameters:
+    each call copies its values in, so new parameters of the same shapes
+    are never read from a stale capture) and, for each step of the horizon,
+    a chain of graphs cut around each layer's Psi terms, all in one memory
+    pool and replayed in the order captured. A call replays each step's
+    chain inside the regions its operations ran in eagerly, each graph in a
+    region ``rgp.freerun.replay``. ``captures`` counts the entries made,
+    ``replays`` the steps replayed."""
+
+    def __init__(self):
+        self._entries = {}
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, step, key, inputs):
+        leaves, spec = tree_flatten(inputs)
+        key = (key, spec, tuple((x.shape, x.stride(), x.dtype) for x in leaves), leaves[0].device)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = self._capture(step, leaves, spec)
+            self.captures += 1
+        else:
+            for s, x in zip(entry.static, leaves):
+                s.copy_(x)
+        for chain in entry.chains:
+            with annotate("rgp.freerun.step"):
+                for k, g in enumerate(chain):
+                    with annotate("psi.per_t") if k % 2 else contextlib.nullcontext(), \
+                            annotate("rgp.freerun.replay"):
+                        g.replay()
+            self.replays += 1
+        return torch.stack(entry.means, dim=1), torch.stack(entry.variances, dim=1)
+
+    @staticmethod
+    def _capture(step, leaves, spec) -> _Captured:
+        """Copies the inputs into static tensors, runs one step eagerly on a
+        side stream (cuBLAS's workspace and every kernel's first load happen
+        outside a capture), then captures every step of the horizon."""
+        dev = leaves[0].device
+        static = [torch.empty_like(x) for x in leaves]
+        for s, x in zip(static, leaves):
+            s.copy_(x)
+        Uw, state, posts, sp = tree_unflatten(static, spec)
+        stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        chains, means, variances = [], [], []
+        with torch.cuda.stream(stream):
+            torch.func.vmap(step, in_dims=(0, 0, None, None))(state, Uw[:, 0], posts, sp)
+            for i in range(Uw.shape[1]):
+                with _Chain(pool) as chain:
+                    vstep = torch.func.vmap(functools.partial(step, psi_region=chain.cut), in_dims=(0, 0, None, None))
+                    state, ym, yv = vstep(state, Uw[:, i], posts, sp)
+                chains.append(chain.graphs)
+                means.append(ym)
+                variances.append(yv)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return _Captured(static, chains, means, variances)
+
+
+step_graphs = StepGraphs()

@@ -1,10 +1,12 @@
 """Profiling helpers (port of ``rgp_tpu/utils/profiling.py``): a
 ``torch.profiler`` trace of a code region, exported as a Chrome trace, and
 named regions (``record_function``) that attribute the time of the hot ops
-in that trace. The serving path records four: ``rgp.posteriors`` and
+in that trace. The serving path records five: ``rgp.posteriors`` and
 ``rgp.freerun.step`` (``models/rgp.freerun``), ``psi.stats``
-(``ops/psi_stats.psi_statistics``) and ``psi.per_t``
-(``inference/collapsed_vi.predict_uncertain``)."""
+(``ops/psi_stats.psi_statistics``), ``psi.per_t``
+(``inference/collapsed_vi.predict_uncertain``) and, around each replay of a
+captured graph of a batched freerun's steps, ``rgp.freerun.replay``
+(``models/rgp.StepGraphs``), inside the step's and Psi terms' regions."""
 
 from __future__ import annotations
 

@@ -78,6 +78,13 @@ def test_a_request_holds_one_posteriors_span_and_a_step_span_a_step(served):
     assert len(r.nesting.named(spans.STEP)) == REQUESTS * horizon
 
 
+def test_eager_steps_read_as_no_graph_replays(served):
+    _, r = _traced(served)
+    ctx = _ctx(r, units=len(r.nesting.named(spans.STEP)))
+    assert not r.nesting.named("rgp.freerun.replay")
+    assert run.load_reader("graph_step_share.rollout")(ctx) == 0.0
+
+
 def test_outputs_are_the_same_bits_with_the_profiler_on(served):
     pc, params, rec, Us, _ = served
     off = _requests(pc, params, rec, Us)
@@ -152,12 +159,25 @@ def test_the_idle_share_inside_step_spans_from_hand_made_intervals():
     assert run.load_reader("step_idle_share.rollout")(_ctx(r, units=2)) == pytest.approx(100 * 120 / 190)
 
 
+def test_the_share_of_steps_replayed_from_graphs_from_hand_made_spans():
+    E = spans.Event
+    # three steps: the first holds two replays (one inside a psi.per_t), the
+    # second none, the third one; a replay outside every step counts for none
+    ev = [E("span", spans.STEP, 100, 200, 0), E("span", "rgp.freerun.replay", 110, 120, 0),
+          E("span", "psi.per_t", 130, 150, 0), E("span", "rgp.freerun.replay", 131, 149, 0),
+          E("span", spans.STEP, 200, 300, 0), E("span", spans.STEP, 300, 400, 0),
+          E("span", "rgp.freerun.replay", 390, 399, 0), E("span", "rgp.freerun.replay", 450, 460, 0)]
+    read = run.load_reader("graph_step_share.rollout")
+    assert read(_ctx(spans.read(ev), units=3)) == pytest.approx(100 * 2 / 3)
+    assert read(_ctx(spans.read([e for e in ev if e.start_ns < 200]), units=1)) == 100.0
+
+
 def test_the_readers_find_nothing_without_the_program_spans():
     E = spans.Event
     bare = spans.read([E("span", spans.REQUEST, 0, 100, 0), E("launch", "cudaLaunchKernel", 10, 12, 1),
                        E("device", "k", 20, 30, 1), E("launch", "cudaStreamSynchronize", 40, 90, 2)])
     for name in ("posteriors_ms.rollout", "posterior_syncs.rollout", "step_launches.rollout",
-                 "psi_device_ms_per_step.rollout", "step_idle_share.rollout"):
+                 "psi_device_ms_per_step.rollout", "step_idle_share.rollout", "graph_step_share.rollout"):
         read = run.load_reader(name)
         assert read(_ctx(bare, units=16)) is None
         assert read(SimpleNamespace(kind="rollout", units=0, trace=None)) is None  # no trace, no window

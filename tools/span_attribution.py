@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 METRICS = ("step_launches.rollout", "posteriors_ms.rollout", "posterior_syncs.rollout",
            "psi_device_ms_per_step.rollout", "step_idle_share.rollout", "launches_per_step.rollout",
-           "idle_share.rollout")
+           "idle_share.rollout", "graph_step_share.rollout")
 
 
 def _top(d, n=8):
