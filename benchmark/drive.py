@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import inputs
+from .reference import input_dims, layer_kernels
 
 
 class Window(NamedTuple):
@@ -33,11 +34,17 @@ class Window(NamedTuple):
 
 
 def program_cfg(cfg):
+    """The program's model configuration, each layer's kernel from its
+    kernel file."""
     from rgp_tpu_torch.models import rgp
 
+    # hidden layers deepest first, then the output layer; deep_rgp_config
+    # takes the hidden ones from the top down
+    kern = [kf.program(din) for kf, din in zip(layer_kernels(cfg), input_dims(cfg))]
     return rgp.deep_rgp_config(wins=list(cfg["wins"]), u_win=cfg["u_win"], y_dim=1, u_dim=1,
-                               num_inducing=cfg["num_inducing"], back_cstr=bool(cfg.get("back_cstr")),
-                               mlp_hidden=tuple(cfg.get("mlp_hidden", ())), noise_floor=cfg["noise_floor"])
+                               num_inducing=cfg["num_inducing"], kernels=kern[-2::-1], out_kernel=kern[-1],
+                               back_cstr=bool(cfg.get("back_cstr")), mlp_hidden=tuple(cfg.get("mlp_hidden", ())),
+                               noise_floor=cfg["noise_floor"])
 
 
 def _sync(dev):

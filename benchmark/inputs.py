@@ -8,8 +8,8 @@ benchmark reads no data through the program): ``actuator`` (T=1024, split
 512/512, a random-telegraph valve input) and ``drives`` (T=500, split
 250/250, an 8-sine multisine input). Parameters follow the data-driven
 recipe a user's ``init_params`` follows (latent means from the smoothed
-output, variances 0.01, noise 0.01, unit kernel variance and lengthscales,
-inducing points by k-means of each layer's windowed inputs, Glorot-normal
+output, variances 0.01, noise 0.01, the kernel file's initial kernel
+parameters (unit variance and lengthscales for ``rbf_ard``), inducing points by k-means of each layer's windowed inputs, Glorot-normal
 encoder weights, the encoder's output layer fitted to the lagged output),
 drawn on the device from one ``torch.Generator`` seeded by ``--seed`` in a
 few batched calls.
@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .reference import current_window, lagged, layout
+from .reference import current_window, lagged, layer_kernels, layout, softplus_inv
 
 
 # ------------------------------------------------------------------ records
@@ -99,10 +99,6 @@ def record(cfg, dtype, device, T=None):
 # --------------------------------------------------------------- parameters
 
 
-def _softplus_inv(y):
-    return y + math.log(-math.expm1(-y))
-
-
 def _smooth(Y, width=5):
     """Moving average over ``width`` steps, zero-padded at both ends."""
     k = torch.ones(1, 1, width, dtype=Y.dtype, device=Y.device) / width
@@ -135,9 +131,11 @@ def generator(seed, device):
 
 def init_params(cfg, rec: Record, n: int, gen, dtype):
     """``n`` parameter sets stacked on a leading axis, in the program's tree
-    layout: {"layers": [{"kern": {"log_var", "log_ls"}, "Z", "log_noise",
-    "mu0", "log_lam0", "mu", "log_lam"}], "out": {...}, "encoder": ...}."""
+    layout: {"layers": [{"kern", "Z", "log_noise", "mu0", "log_lam0", "mu",
+    "log_lam"}], "out": {...}, "encoder": ...}, each "kern" as the layer's
+    kernel file lays it out."""
     lay = layout(cfg)
+    kfs = layer_kernels(cfg)
     dev, M = rec.Y.device, cfg["num_inducing"]
     T = rec.Y.shape[0]
 
@@ -162,9 +160,9 @@ def init_params(cfg, rec: Record, n: int, gen, dtype):
         X = torch.cat([own, low], -1)
         din = X.shape[-1]
         layers.append({
-            "kern": {"log_var": full((n,), _softplus_inv(1.0)), "log_ls": full((n, din), _softplus_inv(1.0))},
+            "kern": kfs[h].init(n, din, dtype, dev),
             "Z": kmeans(X, M, gen),
-            "log_noise": full((n,), _softplus_inv(cfg["init_noise"])),
+            "log_noise": full((n,), softplus_inv(cfg["init_noise"])),
             "mu0": mu_full[:, :L].contiguous(),
             "log_lam0": full((n, L, lay.q), math.log(cfg["init_lam"])),
             "mu": mu_full[:, L:].contiguous(),
@@ -173,9 +171,8 @@ def init_params(cfg, rec: Record, n: int, gen, dtype):
         prev = mu_full
     top = prev[:, lay.wins[-1]:]
     Xo = torch.stack([current_window(m, lay.out_win) for m in top])
-    out = {"kern": {"log_var": full((n,), _softplus_inv(1.0)),
-                    "log_ls": full((n, Xo.shape[-1]), _softplus_inv(1.0))},
-           "Z": kmeans(Xo, M, gen), "log_noise": full((n,), _softplus_inv(cfg["init_noise"]))}
+    out = {"kern": kfs[-1].init(n, Xo.shape[-1], dtype, dev),
+           "Z": kmeans(Xo, M, gen), "log_noise": full((n,), softplus_inv(cfg["init_noise"]))}
     params = {"layers": layers, "out": out}
     if cfg.get("back_cstr"):
         # Glorot-normal hidden weights; the output weights by ridge regression

@@ -5,9 +5,11 @@ REVARB bound of a stack of uncertain-input sparse GPs (Mattos et al. 2016,
 "Recurrent Gaussian Processes"), collapsed over q(u) and assembled in a
 spectral whitening basis of Kmm; its gradient; Adam with optax's semantics
 under a cosine decay; the per-layer posteriors and the moment-matched free
-simulation. It imports nothing of the program under test and takes nothing
-that the program derived: every basis, jitter rung and posterior is worked
-out here again from the parameters and the data.
+simulation. Each layer's covariance function, its expectations Psi0, Psi1
+and Psi2 among them, comes from the kernel file the configuration names
+(:func:`kernel_file`). It imports nothing of the program under test and
+takes nothing that the program derived: every basis, jitter rung and
+posterior is worked out here again from the parameters and the data.
 
 Regularisation is part of the model a configuration states (float32: jitter
 ladders from 1e-6 of the mean diagonal, x1 / x1e3 / x1e7; a spectral floor of
@@ -25,8 +27,11 @@ own dtype, as a program would: the mode of the lower-precision control.
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib.util
 import itertools
 import math
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,6 +39,7 @@ import torch
 LOG2PI = math.log(2.0 * math.pi)
 U32 = 2.0 ** -24  # float32 unit roundoff
 FLOOR_RUNGS = (1.0, 1e3, 1e6)
+PSI2_BLOCK = 128  # steps of a Psi2 time sum formed at once
 JITTER_RUNGS = (1.0, 1e3, 1e7)
 
 
@@ -77,6 +83,10 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def softplus_inv(y):
+    return y + math.log(-math.expm1(-y))
+
+
 def _shift(X, k):
     if k == 0:
         return X
@@ -111,47 +121,71 @@ def layout(cfg) -> Layout:
     return Layout(wins, 1, max(1, cfg["wins"][0]), cfg["u_win"])
 
 
-def rbf(var, ls, X, X2):
-    d = (X[:, None, :] - X2[None, :, :]) / ls
-    return var * torch.exp(-0.5 * (d * d).sum(-1))
+def input_dims(cfg):
+    """Each layer's input width, hidden layers first, the output layer last."""
+    lay = layout(cfg)
+    hidden = [L * lay.q + (lay.u_win if h == 0 else L * lay.q) for h, L in enumerate(lay.wins)]
+    return hidden + [lay.out_win * lay.q]
+
+
+# ------------------------------------------------------------ kernel files
+
+
+KERNELS = Path(__file__).resolve().parent / "kernels"
+KERNEL_API = ("program", "init", "hyper", "K", "psi0", "psi1", "psi2", "psi2_sum", "work", "time_sum_work")
+
+
+def kernel_file(name, where=KERNELS):
+    """The kernel file ``<where>/<name>.py``, loaded once. It holds all
+    that the benchmark knows of one kernel:
+
+    - ``program(din)``: the program's kernel object for a layer of ``din``
+      inputs, the program imported inside it;
+    - ``init(n, din, dtype, device)``: ``n`` parameter sets stacked on a
+      leading axis, in the program's layout;
+    - ``hyper(kp)``: the hyperparameters of one set, which the expectations
+      take as ``p``; formed once a layer, so that each leaf's gradient
+      passes one transform;
+    - the expectations under x_t ~ N(mu_t, diag s_t), plain torch with
+      :func:`mm` for matrix products, so that the TF32 control reaches them:
+      ``K(p, X, X2)``; ``psi0(p, mu, s)`` (T,); ``psi1(p, Z, mu, s)``
+      (T, M); ``psi2(p, Z, mu, s)``, (T, M, M), one matrix a step;
+      ``psi2_sum(p, Z, mu, s, block)``, (M, M), summed over the steps
+      ``block`` at a time;
+    - ``work(M, Q)``: {"psi0", "psi1", "psi2"}, the operations of each at
+      one input point of width Q; ``time_sum_work(T, M, Q)``: (operations,
+      transcendentals, bytes) of the program's Psi2 time sum.
+    """
+    return _load_kernel(name, Path(where))
+
+
+@functools.lru_cache(maxsize=None)
+def _load_kernel(name, where):
+    there = sorted(f.stem for f in where.glob("*.py"))
+    if name not in there:
+        raise ValueError(f"unknown kernel {name!r}; {where} has {there}")
+    mod_name = f"{__package__}.kernels.{name.replace('.', '_').replace('-', '_')}"
+    spec = importlib.util.spec_from_file_location(mod_name, where / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [f for f in KERNEL_API if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"kernel file {name}.py lacks {missing}")
+    return mod
+
+
+def layer_kernels(cfg, where=KERNELS):
+    """The kernel file of each layer, hidden layers first: ``"kernel"`` for
+    the hidden layers, ``"out_kernel"`` (``"kernel"`` if absent) for the
+    output layer."""
+    hidden = kernel_file(cfg["kernel"], where)
+    return [hidden] * len(layout(cfg).wins) + [kernel_file(cfg.get("out_kernel", cfg["kernel"]), where)]
 
 
 def mlp(layers, x):
     for lay in layers[:-1]:
         x = torch.tanh(mm(x, lay["w"]) + lay["b"])
     return mm(x, layers[-1]["w"]) + layers[-1]["b"]
-
-
-# ------------------------------------------------------------ expectations
-
-
-def psi1(var, ls, Z, mu, s):
-    """E k(x_t, z_m) for x_t ~ N(mu_t, diag s_t): (T, M)."""
-    l2 = ls * ls
-    d = mu[:, None, :] - Z[None, :, :]
-    den = l2 + s[:, None, :]
-    return var * torch.exp(-0.5 * torch.log1p(s / l2).sum(-1)[:, None] - 0.5 * (d * d / den).sum(-1))
-
-
-def psi2_terms(var, ls, Z, mu, s):
-    """log E k(x_t, z_m) k(x_t, z_n), (T, M, M), from the midpoint form
-    -|z_m - z_n|^2 / (4 l^2) - (mu - (z_m + z_n)/2)^2 / (l^2 + 2 s)."""
-    l2 = ls * ls
-    M, Q = Z.shape
-    dz = (Z[:, None, :] - Z[None, :, :]) ** 2 / (4.0 * l2)
-    zbar = (0.5 * (Z[:, None, :] + Z[None, :, :])).reshape(M * M, Q)
-    w = 1.0 / (l2 + 2.0 * s)  # (T, Q)
-    quad = (w * mu * mu).sum(-1)[:, None] - 2.0 * mm(w * mu, zbar.T) + mm(w, (zbar * zbar).T)
-    logc = 2.0 * torch.log(var) - 0.5 * torch.log1p(2.0 * s / l2).sum(-1)
-    return logc[:, None, None] - dz.sum(-1)[None] - quad.reshape(-1, M, M)
-
-
-def psi2_sum(var, ls, Z, mu, s, block=128):
-    """sum_t E k(x_t, z_m) k(x_t, z_n), (M, M), ``block`` timesteps at a time."""
-    out = 0.0
-    for a in range(0, mu.shape[0], block):
-        out = out + torch.exp(psi2_terms(var, ls, Z, mu[a:a + block], s[a:a + block])).sum(0)
-    return out
 
 
 # ---------------------------------------------------------------- ladders
@@ -329,6 +363,7 @@ def hidden_moments(cfg, params, Y, U):
 
 
 class LayerData(NamedTuple):
+    kf: object  # the layer's kernel file
     kp: dict
     Z: torch.Tensor
     noise: torch.Tensor
@@ -341,6 +376,7 @@ class LayerData(NamedTuple):
 def layers_of(cfg, params, Y, U):
     """Every layer's uncertain inputs and targets, hidden layers first."""
     lay = layout(cfg)
+    kfs = layer_kernels(cfg)
     mus, lams = hidden_moments(cfg, params, Y, U)
     out, lo_mu, lo_s = [], None, None
     for h, L in enumerate(lay.wins):
@@ -351,12 +387,12 @@ def layers_of(cfg, params, Y, U):
             low_s = torch.zeros_like(low_mu)
         else:
             low_mu, low_s = current_window(lo_mu, L), current_window(lo_s, L)
-        out.append(LayerData(lp["kern"], lp["Z"], noise_of(cfg, lp["log_noise"]),
+        out.append(LayerData(kfs[h], lp["kern"], lp["Z"], noise_of(cfg, lp["log_noise"]),
                              torch.cat([own_mu, low_mu], -1), torch.cat([own_s, low_s], -1),
                              mus[h][L:], lams[h][L:]))
         lo_mu, lo_s = mus[h][L:], lams[h][L:]
     op = params["out"]
-    out.append(LayerData(op["kern"], op["Z"], noise_of(cfg, op["log_noise"]),
+    out.append(LayerData(kfs[-1], op["kern"], op["Z"], noise_of(cfg, op["log_noise"]),
                          current_window(lo_mu, lay.out_win), current_window(lo_s, lay.out_win), Y, None))
     return out, mus, lams
 
@@ -381,14 +417,16 @@ class Stats(NamedTuple):
 
 
 def stats_of(d: LayerData, with32: bool = False):
-    var, ls = softplus(d.kp["log_var"]), softplus(d.kp["log_ls"])
+    kf = d.kf
+    p = kf.hyper(d.kp)
     f32 = None
     if with32:
         with torch.no_grad():
-            v, l, Z, mu, s = (x.detach().float() for x in (var, ls, d.Z, d.X_mu, d.X_s))
-            f32 = Stats32(rbf(v, l, Z, Z), psi2_sum(v, l, Z, mu, s), 1.0 / d.noise.detach().float())
-    return Stats(rbf(var, ls, d.Z, d.Z), var.expand(d.X_mu.shape[0]), psi1(var, ls, d.Z, d.X_mu, d.X_s),
-                 psi2_sum(var, ls, d.Z, d.X_mu, d.X_s), 1.0 / d.noise, f32)
+            p32 = tree_with(p, [x.detach().float() for _, x in tree_leaves(p)])
+            Z, mu, s = (x.detach().float() for x in (d.Z, d.X_mu, d.X_s))
+            f32 = Stats32(kf.K(p32, Z, Z), kf.psi2_sum(p32, Z, mu, s, PSI2_BLOCK), 1.0 / d.noise.detach().float())
+    return Stats(kf.K(p, d.Z, d.Z), kf.psi0(p, d.X_mu, d.X_s), kf.psi1(p, d.Z, d.X_mu, d.X_s),
+                 kf.psi2_sum(p, d.Z, d.X_mu, d.X_s, PSI2_BLOCK), 1.0 / d.noise, f32)
 
 
 def bound_options(cfg, st: Stats, B: Basis, ladder: Ladder):
@@ -517,15 +555,16 @@ def posterior_options(cfg, st: Stats, d: LayerData, ladder: Ladder):
     return out
 
 
-def predict(d_kp, Z, noise, post: Posterior, mu, s):
-    """Moment-matched predictive (mean, variance + noise) at N(mu, diag s)."""
-    var, ls = softplus(d_kp["log_var"]), softplus(d_kp["log_ls"])
-    p1 = psi1(var, ls, Z, mu, s)
-    p2 = torch.exp(psi2_terms(var, ls, Z, mu, s))
+def predict(kf, kp, Z, noise, post: Posterior, mu, s):
+    """Moment-matched predictive (mean, variance + noise) at N(mu, diag s),
+    ``kf`` the layer's kernel file and ``kp`` its leaves."""
+    p = kf.hyper(kp)
+    p1 = kf.psi1(p, Z, mu, s)
+    p2 = kf.psi2(p, Z, mu, s)
     mean = mm(p1, post.alpha)
     quad = (mm(p2, post.alpha) * post.alpha[None]).sum(1)
     tr = (p2 * post.wood.mT[None]).sum((1, 2))
-    v = quad - mean * mean + (var - tr)[:, None] + noise
+    v = quad - mean * mean + (kf.psi0(p, mu, s) - tr)[:, None] + noise
     return mean, torch.clamp(v, min=1e-12)
 
 
@@ -542,6 +581,7 @@ def freerun(cfg, params, Y, U, posts, mus, lams, Us):
     Lu = lay.u_win
     Ucat = torch.cat([U[-(Lu - 1):][None].expand(S, Lu - 1, U.shape[1]), Us], 1) if Lu > 1 else Us
     layers = list(params["layers"]) + [params["out"]]
+    kfs = layer_kernels(cfg)
     means, variances = [], []
     for i in range(H):
         uw = torch.flip(Ucat[:, i:i + Lu], [1]).reshape(S, -1)
@@ -553,7 +593,7 @@ def freerun(cfg, params, Y, U, posts, mus, lams, Us):
                 lo_m = torch.cat([new_m[h - 1], bm[h - 1][:, :L - 1]], 1)
                 lo_s = torch.cat([new_s[h - 1], bs[h - 1][:, :L - 1]], 1)
             lp = layers[h]
-            m, v = predict(lp["kern"], lp["Z"], noise_of(cfg, lp["log_noise"]), posts[h],
+            m, v = predict(kfs[h], lp["kern"], lp["Z"], noise_of(cfg, lp["log_noise"]), posts[h],
                            torch.cat([bm[h][:, :L], lo_m], 1), torch.cat([bs[h][:, :L], lo_s], 1))
             new_m.append(m)
             new_s.append(v)
@@ -561,7 +601,7 @@ def freerun(cfg, params, Y, U, posts, mus, lams, Us):
         top_m = torch.cat([new_m[-1], bm[-1][:, :W - 1]], 1)
         top_s = torch.cat([new_s[-1], bs[-1][:, :W - 1]], 1)
         op = params["out"]
-        ym, yv = predict(op["kern"], op["Z"], noise_of(cfg, op["log_noise"]), posts[-1], top_m, top_s)
+        ym, yv = predict(kfs[-1], op["kern"], op["Z"], noise_of(cfg, op["log_noise"]), posts[-1], top_m, top_s)
         bm = [torch.cat([new_m[h], bm[h][:, :-1]], 1) for h in range(nh)]
         bs = [torch.cat([new_s[h], bs[h][:, :-1]], 1) for h in range(nh)]
         means.append(ym)

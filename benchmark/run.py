@@ -5,10 +5,12 @@
 from the root of a checkout. ``BENCHMARK.json`` names the cell; its
 configuration, traffic mix, limits and metrics are files found by name:
 ``benchmark/configs/<config>.json`` (as ``BENCHMARK.json`` gives it),
-``benchmark/traffic/<traffic>.json``, ``benchmark/limits/<workload>.json``
-and ``benchmark/metrics/<metric>.py``, each reader a ``read(ctx)`` that
-returns a number or None. The traffic file's ``kind`` picks the driver
-(``drive.py``) and the check (``check.py``).
+``benchmark/traffic/<traffic>.json``, ``benchmark/limits/<workload>.json``,
+``benchmark/metrics/<metric>.py``, each reader a ``read(ctx)`` that
+returns a number or None, and ``benchmark/kernels/<kernel>.py`` for the
+configuration's ``kernel`` and ``out_kernel`` (``reference.kernel_file``).
+The traffic file's ``kind`` picks the driver (``drive.py``) and the check
+(``check.py``).
 
 The run needs as many CUDA devices as the cell asks for. It drives
 ``rgp_tpu_torch`` on the card, measures for ``--seconds`` seconds (with
@@ -71,7 +73,10 @@ class Cell(SimpleNamespace):
 
 def load_cell(name, root=ROOT):
     """The workload ``name`` of ``root``'s BENCHMARK.json, its configuration,
-    traffic, limits and metrics read from the files they name."""
+    traffic, limits and metrics read from the files they name; a kernel the
+    configuration names that has no file fails here."""
+    from .reference import layer_kernels
+
     root = Path(root)
     here = root / HERE.name
     spec = _json(root / "BENCHMARK.json")
@@ -80,11 +85,13 @@ def load_cell(name, root=ROOT):
         raise SystemExit(f"unknown workload {name!r}; BENCHMARK.json has {sorted(work)}")
     w = work[name]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
+    config = _json(root / conf["file"])
+    layer_kernels(config, here / "kernels")
 
     def listed(m):
         return "workloads" not in m or name in m["workloads"]
 
-    return Cell(name=name, chips=w["chips"], config=_json(root / conf["file"]),
+    return Cell(name=name, chips=w["chips"], config=config,
                 traffic=_json(here / "traffic" / f"{w['traffic']}.json"),
                 limits=_json(here / "limits" / f"{name}.json"), here=here,
                 end_to_end=[m for m in spec["end_to_end"] if listed(m)],

@@ -1,6 +1,6 @@
 """The import check compares whole top-level names; the harness and the
-reference load no JAX and no JAX package, and the reference nothing of the
-program."""
+reference load no JAX and no JAX package, and the reference and the kernel
+files nothing of the program outside ``program()``."""
 
 import subprocess
 import sys
@@ -31,3 +31,18 @@ def test_the_harness_and_the_program_load_no_jax():
 def test_the_reference_imports_nothing_of_the_program():
     mods = _loaded("import benchmark.reference, benchmark.inputs, benchmark.check, benchmark.yardstick")
     assert not [m for m in mods if m.split(".")[0] in ("rgp_tpu_torch", "rgp_tpu", "jax")]
+
+
+def test_kernel_files_import_the_program_only_in_program():
+    mods = _loaded("import torch\nfrom benchmark import reference as r, inputs\n"
+                   "for f in sorted(r.KERNELS.glob('*.py')):\n"
+                   "    kf = r.kernel_file(f.stem)\n"
+                   "    p = kf.hyper(inputs.member(kf.init(1, 3, torch.float64, 'cpu'), 0))\n"
+                   "    X = torch.ones(4, 3, dtype=torch.float64)\n"
+                   "    kf.K(p, X, X), kf.psi0(p, X, X), kf.psi1(p, X, X, X), kf.psi2(p, X, X, X)\n"
+                   "    kf.psi2_sum(p, X, X, X, 2), kf.work(4, 3), kf.time_sum_work(4, 4, 3)")
+    assert "benchmark.reference" in mods
+    assert not [m for m in mods if m.split(".")[0] in ("rgp_tpu_torch", "rgp_tpu", "jax")]
+    mods = _loaded("from benchmark import reference as r\n"
+                   "for f in sorted(r.KERNELS.glob('*.py')):\n    r.kernel_file(f.stem).program(3)")
+    assert "rgp_tpu_torch.kernels" in mods and run.forbidden_modules(mods) == []
