@@ -398,7 +398,8 @@ def _pair_cross_psi2(ki, pi, kj, pj, Z, mu, s, per_t: bool):
 
 def _sum_psi2_cross(kern: Sum, p, Z, mu, s, per_t: bool = False):
     """Cross terms E[k_a(x,zm) k_b(x,zm')] of an additive kernel: closed forms
-    for every pair among {RBF, Linear, Bias}; White crosses vanish."""
+    for every pair among {RBF, Linear, Bias}; White crosses vanish. Each
+    pair's term is profiled as the region ``psi.cross``."""
     T, M = mu.shape[0], Z.shape[0]
     total = mu.new_zeros((T, M, M) if per_t else (M, M))
     n = len(kern.parts)
@@ -408,20 +409,21 @@ def _sum_psi2_cross(kern: Sum, p, Z, mu, s, per_t: bool = False):
             pi, pj = p[i], p[j]
             if isinstance(ki, White) or isinstance(kj, White):
                 continue
-            if isinstance(ki, Bias) or isinstance(kj, Bias):
-                if isinstance(ki, Bias):
-                    bvar, other, po = positive(pi["log_var"]), kj, pj
+            with annotate("psi.cross"):
+                if isinstance(ki, Bias) or isinstance(kj, Bias):
+                    if isinstance(ki, Bias):
+                        bvar, other, po = positive(pi["log_var"]), kj, pj
+                    else:
+                        bvar, other, po = positive(pj["log_var"]), ki, pi
+                    _, psi1_o = _psi01(other, po, Z, mu, s)  # (T, M)
+                    if per_t:
+                        cross = bvar * (psi1_o[:, :, None] + psi1_o[:, None, :])
+                    else:
+                        colsum = psi1_o.sum(0)  # (M,)
+                        cross = bvar * (colsum[:, None] + colsum[None, :])
+                    total = total + cross
                 else:
-                    bvar, other, po = positive(pj["log_var"]), ki, pi
-                _, psi1_o = _psi01(other, po, Z, mu, s)  # (T, M)
-                if per_t:
-                    cross = bvar * (psi1_o[:, :, None] + psi1_o[:, None, :])
-                else:
-                    colsum = psi1_o.sum(0)  # (M,)
-                    cross = bvar * (colsum[:, None] + colsum[None, :])
-                total = total + cross
-            else:
-                total = total + _pair_cross_psi2(ki, pi, kj, pj, Z, mu, s, per_t)
+                    total = total + _pair_cross_psi2(ki, pi, kj, pj, Z, mu, s, per_t)
     return total
 
 

@@ -1,10 +1,12 @@
 """Profiling helpers (port of ``rgp_tpu/utils/profiling.py``): a
 ``torch.profiler`` trace of a code region, exported as a Chrome trace, and
 named regions (``record_function``) that attribute the time of the hot ops
-in that trace. The serving path records five: ``rgp.posteriors`` and
+in that trace. The serving path records six: ``rgp.posteriors`` and
 ``rgp.freerun.step`` (``models/rgp.freerun``), ``psi.stats``
 (``ops/psi_stats.psi_statistics``), ``psi.per_t``
-(``inference/collapsed_vi.predict_uncertain``) and, around each replay of a
+(``inference/collapsed_vi.predict_uncertain``), inside either of these
+``psi.cross`` (each pair's cross term of an additive kernel,
+``ops/psi_stats._sum_psi2_cross``) and, around each replay of a
 captured graph of a batched freerun's steps, ``rgp.freerun.replay``
 (``models/rgp.StepGraphs``), inside the step's and Psi terms' regions."""
 

@@ -1,15 +1,17 @@
 """The serving path's profiler spans on the CPU, and the benchmark's reading
 of them (``benchmark/spans.py``).
 
-Both served configurations (config 1's one-layer RGP, config 2's two-layer
-RGP with back-constraint MLPs), cut to a short record and 12 inducing
-points, float32, a batched freerun of 8 candidates over the benchmark's
-16-step horizon: a request holds one ``rgp.posteriors`` span (its
-``psi.stats`` spans inside, one a layer) and one ``rgp.freerun.step`` span a
-step (its ``psi.per_t`` spans inside, one a layer), and the outputs are the
-same bits with the profiler on and off. The attribution of device
-operations, host waits and idle time is checked on hand-made events, since
-the CPU has no device events.
+The three served configurations (config 1's one-layer RGP, config 2's
+two-layer RGP with back-constraint MLPs, config 1 with an RBF-ARD +
+Linear-ARD hidden kernel), cut to a short record and 12 inducing points,
+float32, a batched freerun of 8 candidates over the benchmark's 16-step
+horizon: a request holds one ``rgp.posteriors`` span (its ``psi.stats``
+spans inside, one a layer) and one ``rgp.freerun.step`` span a step (its
+``psi.per_t`` spans inside, one a layer), the additive kernel's cross term
+one ``psi.cross`` span inside its layer's ``psi.stats`` and each of its
+``psi.per_t``, and the outputs are the same bits with the profiler on and
+off. The attribution of device operations, host waits and idle time is
+checked on hand-made events, since the CPU has no device events.
 """
 
 from types import SimpleNamespace
@@ -24,7 +26,10 @@ from rgp_tpu_torch.bench import serving
 WIDTH, REQUESTS = 8, 2
 
 
-@pytest.fixture(scope="module", params=["rgp1-rollout-w16384", "rgp2mlp-rollout-w1024"])
+SUM_CELL = "rgp1lin-rollout-w16384"  # the hidden kernel RBF-ARD + Linear-ARD
+
+
+@pytest.fixture(scope="module", params=["rgp1-rollout-w16384", "rgp2mlp-rollout-w1024", SUM_CELL])
 def served(request):
     cell = run.load_cell(request.param)
     cfg = dict(cell.config, T=64, num_inducing=12)
@@ -35,7 +40,7 @@ def served(request):
     params = inputs.served_params(cfg, rec, gen, torch.float32)
     horizon = cell.traffic["horizon"]
     Us = [inputs.candidates(cfg, rec, WIDTH, horizon, gen) for _ in range(REQUESTS)]
-    return drive.program_cfg(cfg), params, rec, Us, horizon
+    return drive.program_cfg(cfg), params, rec, Us, horizon, request.param
 
 
 def _requests(pc, params, rec, Us):
@@ -47,7 +52,7 @@ def _requests(pc, params, rec, Us):
 
 
 def _traced(served):
-    pc, params, rec, Us, _ = served
+    pc, params, rec, Us, *_ = served
     prof = profile(activities=[ProfilerActivity.CPU])
     prof.start()  # as the benchmark's tracer starts it
     try:
@@ -58,7 +63,7 @@ def _traced(served):
 
 
 def test_a_request_holds_one_posteriors_span_and_a_step_span_a_step(served):
-    pc, _, _, _, horizon = served
+    pc, _, _, _, horizon, _ = served
     _, r = _traced(served)
     reqs = r.nesting.named(spans.REQUEST)
     assert len(reqs) == REQUESTS
@@ -78,6 +83,35 @@ def test_a_request_holds_one_posteriors_span_and_a_step_span_a_step(served):
     assert len(r.nesting.named(spans.STEP)) == REQUESTS * horizon
 
 
+def test_an_additive_kernels_cross_term_is_one_span_in_its_layers_psi_terms(served):
+    """The Sum configuration's hidden layer: one ``psi.cross`` inside its
+    ``psi.stats`` in the posteriors and inside its ``psi.per_t`` in each
+    step; the output layer (RBF) and the RBF-only configurations hold none,
+    and the reader of the span's device time finds nothing there."""
+    _, _, _, _, horizon, name = served
+    _, r = _traced(served)
+    crosses = r.nesting.named("psi.cross")
+    read = run.load_reader("psi_cross_ms_per_step.rollout")
+    ctx = _ctx(r, units=len(r.nesting.named(spans.STEP)))
+    if name != SUM_CELL:
+        assert crosses == [] and read(ctx) is None
+        return
+    assert len(crosses) == REQUESTS * (horizon + 1)
+
+    def first_inside(name, lo, hi):
+        return min((s, e) for s, e in r.nesting.named(name) if lo <= s and e <= hi)
+
+    for lo, hi in r.nesting.named(spans.POSTERIORS):
+        s, e = first_inside("psi.stats", lo, hi)  # the hidden layer's
+        assert len([c for c in crosses if lo <= c[0] and c[1] <= hi]) == 1
+        assert len([c for c in crosses if s <= c[0] and c[1] <= e]) == 1
+    for lo, hi in r.nesting.named(spans.STEP):
+        s, e = first_inside("psi.per_t", lo, hi)  # the hidden layer's
+        assert len([c for c in crosses if lo <= c[0] and c[1] <= hi]) == 1
+        assert len([c for c in crosses if s <= c[0] and c[1] <= e]) == 1
+    assert read(ctx) == 0.0  # no device operations on the CPU
+
+
 def test_eager_steps_read_as_no_graph_replays(served):
     _, r = _traced(served)
     ctx = _ctx(r, units=len(r.nesting.named(spans.STEP)))
@@ -86,7 +120,7 @@ def test_eager_steps_read_as_no_graph_replays(served):
 
 
 def test_outputs_are_the_same_bits_with_the_profiler_on(served):
-    pc, params, rec, Us, _ = served
+    pc, params, rec, Us, *_ = served
     off = _requests(pc, params, rec, Us)
     on, _ = _traced(served)
     for (m0, v0), (m1, v1) in zip(off, on):
@@ -159,6 +193,23 @@ def test_the_idle_share_inside_step_spans_from_hand_made_intervals():
     assert run.load_reader("step_idle_share.rollout")(_ctx(r, units=2)) == pytest.approx(100 * 120 / 190)
 
 
+def test_the_cross_terms_device_time_from_hand_made_spans():
+    """Device time launched inside ``psi.cross`` spans, over the steps; it is
+    also counted once in ``psi_device_ms_per_step.rollout``."""
+    E = spans.Event
+    ev = [E("span", spans.POSTERIORS, 0, 100, 0), E("span", "psi.stats", 10, 90, 0),
+          E("span", "psi.cross", 20, 40, 0), E("span", spans.STEP, 100, 200, 0),
+          E("span", "psi.per_t", 110, 190, 0), E("span", "psi.cross", 150, 180, 0)]
+    launches = [(1, 15), (2, 25), (3, 120), (4, 160), (5, 195)]
+    ev += [E("launch", "cudaLaunchKernel", t, t + 2, c) for c, t in launches]
+    ev += [E("device", f"k{c}", 300 + 10 * c, 305 + 10 * c + c, c) for c, _ in launches]
+    r = spans.read(ev)
+    # k2 (7) in the posteriors' cross term, k4 (9) in the step's
+    assert run.load_reader("psi_cross_ms_per_step.rollout")(_ctx(r, units=1)) == pytest.approx(16 / 1e6)
+    # k1 (6) + k2 + k3 (8) + k4, the cross terms' once
+    assert run.load_reader("psi_device_ms_per_step.rollout")(_ctx(r, units=1)) == pytest.approx(30 / 1e6)
+
+
 def test_the_share_of_steps_replayed_from_graphs_from_hand_made_spans():
     E = spans.Event
     # three steps: the first holds two replays (one inside a psi.per_t), the
@@ -177,7 +228,8 @@ def test_the_readers_find_nothing_without_the_program_spans():
     bare = spans.read([E("span", spans.REQUEST, 0, 100, 0), E("launch", "cudaLaunchKernel", 10, 12, 1),
                        E("device", "k", 20, 30, 1), E("launch", "cudaStreamSynchronize", 40, 90, 2)])
     for name in ("posteriors_ms.rollout", "posterior_syncs.rollout", "step_launches.rollout",
-                 "psi_device_ms_per_step.rollout", "step_idle_share.rollout", "graph_step_share.rollout"):
+                 "psi_device_ms_per_step.rollout", "step_idle_share.rollout", "graph_step_share.rollout",
+                 "psi_cross_ms_per_step.rollout"):
         read = run.load_reader(name)
         assert read(_ctx(bare, units=16)) is None
         assert read(SimpleNamespace(kind="rollout", units=0, trace=None)) is None  # no trace, no window
