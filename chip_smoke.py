@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. Require a CUDA device; print the card's name and power limit
    (``nvidia-smi``) and the TF32 flags, which must both be off.
 2. Build K1 and K2, the hand-written CUDA Psi2 time-sum kernel and its
-   backward, from ``rgp_tpu_torch/csrc/psi2_{fwd,bwd}.cu``, and the
+   backward, from ``rgp_tpu_torch/csrc/psi2_{fwd,bwd}.cu``, K3, the
+   predictive's Psi2 contraction (``csrc/psi2_contract.cu``), and the
    roofline's exp probe (``csrc/exp_probe.cu``; phase 12a): nvcc, sm_90a,
    all at once.
 3. Hold K1 and K2 against their plain PyTorch versions, run in float64 on the
@@ -37,14 +38,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    float64, and one launch a batched call; with Z shared, the device time of
    one batched call beside B single launches, and the bound (B single
    bounds).
+   3k. K3, each row's Psi2 contracted with the predictive's matrices
+   (``rgp_tpu_torch/csrc/psi2_contract.cu``), at config 1's layers (T, M,
+   Q, D) = (16384, 100, 20, 1) and (16384, 100, 1, 1), config 2's
+   (1024, 100, 16, 1), (1024, 100, 12, 1) and (1024, 100, 1, 1), and two
+   columns at (1024, 100, 20, 2): against its plain version in float64 on
+   the card from the same float32 inputs, per row |k - p| <= 2e-6 times the
+   sum of the terms' magnitudes, one device launch a call, a rerun's bits;
+   the wrapper time, the device time, the plain float32 version's time,
+   the materialised contraction it replaced (Psi2_t formed, then the two
+   einsums) and the bound (``roofline.k3_bound_ms``).
 4. Serve config 1 in float32 on the card: actuator data,
    ``deep_rgp_config(wins=[0,10], u_win=10, num_inducing=100)``,
    ``init_params(seed=0)``, then ``elbo`` (forward), ``compute_whitenings``,
    ``predict_train`` and ``freerun`` over the 512-step test horizon. The launch
    counts are set to 0 just before and read just after: K1 must rise by 2 per
    pass over the layers, K2 must not run and the plain Psi2 path must not be
-   taken. Outputs must be finite; time freerun and predict_train, and profile
-   one call of each (device busy share, device ops per step). Then the repo's
+   taken; K3 (``psi2_contract.launches``) must not run in ``elbo`` and
+   ``compute_whitenings``, must run once in ``predict_train`` (its output
+   layer) and once a layer a step in ``freerun``. Outputs must be finite;
+   time freerun and predict_train, and profile one call of each (device
+   busy share, device ops per step). Then the repo's
    f32-lane gates at its tests' sizes (T=128): float32 through K1 against
    float64 through the plain path from the same parameters, ELBO
    |e32-e64|/(1+|e64|) < 1e-3 at M=32 and a 64-step freerun trajectory
@@ -224,7 +238,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    finite, element 0 of the batched freerun equal to an unbatched freerun on
    the same inputs within 1e-4 of its largest, or within the single float32
    freerun's distance from float64 where that is larger (the variances);
-   steps/s, latencies and the batched steps/s.
+   steps/s, latencies and the batched steps/s. K3's count, set to 0 before
+   ``serve`` and read after it, must cover its eager freeruns (once a layer
+   a step) and ``predict_train`` calls (once each); the unbatched freerun
+   after it, and the batched one with its steps eager (grad mode on: the
+   launches that captured graphs replay do not pass the wrapper), must each
+   launch K3 once a layer a step.
    12d. ``multimodality.run`` at 32 restarts, M=100, 200 steps, chunks of
    100: K1 exactly one launch a layer for all restarts in every forward
    (refreshes and the freeruns' posteriors included), K2 one a layer in every
@@ -247,7 +266,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    tasks_narendra_gp_narx --out <tmp>``: its row has return code 0, a parsed
    result, ``git_sha`` and the card.
 
-Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase prints its wall seconds. The line before the last is ``{"kernels": [...]}``: a row each for K1,
+K2 and K3 (its shapes from phase 3k, its launches by path from phases 4 and 12c); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -516,6 +536,73 @@ def phase_k1(psi2):
     return rows
 
 
+_K3_SHAPES = [(16384, 100, 20, 1), (16384, 100, 1, 1), (1024, 100, 16, 1), (1024, 100, 12, 1), (1024, 100, 1, 1),
+              (1024, 100, 20, 2)]
+
+
+def phase_k3(psi2_contract):
+    """Phase 3k: K3 against its plain version; returns per-shape results."""
+    from rgp_tpu_torch.bench.psi2_times import device_per_call, time_cuda_ms
+    from rgp_tpu_torch.bench.roofline import k3_bound_ms
+    from rgp_tpu_torch.kernels import RBF
+    from rgp_tpu_torch.ops import psi_stats
+    from rgp_tpu_torch.ops.cuda import psi2
+
+    dev = torch.device("cuda")
+    rows = []
+    for i, (T, M, Q, D) in enumerate(_K3_SHAPES):
+        rng = np.random.default_rng(300 + i)
+        def t64(x):
+            return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+        mu, s = t64(rng.standard_normal((T, Q))), t64(rng.uniform(0.05, 0.4, (T, Q)))
+        Z = t64(rng.standard_normal((M, Q)))
+        p = RBF(input_dim=Q).init(variance=0.8, lengthscale=math.sqrt(Q), dtype=torch.float64, device=dev)
+        A = rng.standard_normal((M, M)) / M
+        alpha, W = t64(0.5 * rng.standard_normal((M, D))), t64(A @ A.T)
+        args32 = [x.to(torch.float32).contiguous() for x in (*psi2.rbf_psi2_precompute(p, Z, mu, s), Z, alpha, W)]
+        args64 = [x.double() for x in args32]
+
+        def call():
+            return psi2_contract.psi2_contract(*args32)
+
+        k = call()
+        torch.cuda.synchronize()
+        ref = psi2_contract.psi2_contract_plain(*args64)
+        base, E, D1, w, Zd, al, Wd = args64
+        m, n = torch.triu_indices(M, M, device=dev)
+        scale = torch.exp(base[:, None] + E[:, m] + E[:, n] - D1[m, n] - 0.5 * (w @ (Zd[m] * Zd[n]).T)) \
+            @ psi2_contract._weights(al, Wd, m, n).abs()
+        err = (k.double() - ref).abs()
+        tol = 2e-6 * scale + 1e-7
+        ok = bool(torch.isfinite(k).all()) and bool((err <= tol).all())
+        same = bit_identical(k, call())
+        k_ms = time_cuda_ms(call)
+        dev_ms, per_call, names = device_per_call(call)
+        plain_ms = time_cuda_ms(lambda: psi2_contract.psi2_contract_plain(*args32), n=5, warm=1)
+        kern, p32 = RBF(input_dim=Q), {k_: v.float() for k_, v in p.items()}
+        mu32, s32, Z32, al32, W32 = (x.float() for x in (mu, s, Z, alpha, W))
+
+        def materialised():
+            p2t = psi_stats.psi2_per_t(kern, p32, Z32, mu32, s32)
+            quad = torch.einsum("md,tmn,nd->td", al32, p2t, al32)
+            return quad - torch.einsum("mn,tnm->t", W32, p2t)[:, None]
+
+        mat_ms = time_cuda_ms(materialised, n=10)
+        bound, bound_by = k3_bound_ms(T, M, Q, D)
+        row = {"T": T, "M": M, "Q": Q, "D": D,
+               "max_abs_err": float(err.max()), "worst_err_over_tol": float((err / tol).max()),
+               "ms": k_ms, "device_ms": dev_ms, "launches_per_call": per_call, "bit_identical": same,
+               "plain_ms": plain_ms, "materialised_ms": mat_ms, "bound_ms": bound, "bound_by": bound_by,
+               "share": bound / dev_ms}
+        print("k3", json.dumps(row))
+        check(ok, f"K3 disagrees with its plain version at (T,M,Q,D)={T, M, Q, D}: {row}")
+        check(same, f"K3 gave different bits on a rerun at (T,M,Q,D)={T, M, Q, D}")
+        check_one_launch(per_call, names, "psi2_contract_kernel", (T, M, Q, D))
+        rows.append(row)
+    return rows
+
+
 def _within(k, p, rel=3e-4, rel_max=3e-5):
     """(ok, max_abs_err, worst err/tol) for |k - p| <= rel |p| + rel_max max|p|."""
     err = (k.double() - p).abs()
@@ -729,8 +816,9 @@ def phase_batched(psi2, card):
     return rows
 
 
-def phase_serving(psi2, psi_stats):
-    """Phase 4: config 1 in float32 on the card through the port's entry points."""
+def phase_serving(psi2, psi_stats, psi2_contract):
+    """Phase 4: config 1 in float32 on the card through the port's entry
+    points. Returns (K1 launches, K3 launches by stage)."""
     from rgp_tpu_torch.data import datasets
     from rgp_tpu_torch.models import rgp
 
@@ -745,27 +833,32 @@ def phase_serving(psi2, psi_stats):
     psi2.launches = 0
     psi2.bwd_launches = 0
     psi_stats.plain_psi2_calls = 0
-    stage = {}
+    stage, k3 = {}, {}
+
+    def counted(name, fn):
+        n1 = psi2.launches
+        psi2_contract.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        stage[name], k3[name] = psi2.launches - n1, psi2_contract.launches
+        return out
+
     with torch.no_grad():
-        e32 = rgp.elbo(cfg, params, Y, U, block=None)
-        torch.cuda.synchronize()
-        stage["elbo"] = psi2.launches
-        wh = rgp.compute_whitenings(cfg, params, Y, U, block=None)
-        torch.cuda.synchronize()
-        stage["compute_whitenings"] = psi2.launches - sum(stage.values())
-        pm, pv = rgp.predict_train(cfg, params, Y, U)
-        torch.cuda.synchronize()
-        stage["predict_train"] = psi2.launches - sum(stage.values())
-        fm, fv = rgp.freerun(cfg, params, Y, U, Ut)
-        torch.cuda.synchronize()
-        stage["freerun"] = psi2.launches - sum(stage.values())
+        e32 = counted("elbo", lambda: rgp.elbo(cfg, params, Y, U, block=None))
+        wh = counted("compute_whitenings", lambda: rgp.compute_whitenings(cfg, params, Y, U, block=None))
+        pm, pv = counted("predict_train", lambda: rgp.predict_train(cfg, params, Y, U))
+        fm, fv = counted("freerun", lambda: rgp.freerun(cfg, params, Y, U, Ut))
     launches, plain = psi2.launches, psi_stats.plain_psi2_calls
+    T_star = int(Ut.shape[0])
+    k3_want = {"elbo": 0, "compute_whitenings": 0, "predict_train": 1, "freerun": n_layers * T_star}
     print("serving launches", json.dumps({"k1": launches, "k2": psi2.bwd_launches, "per_stage": stage,
-                                          "plain_psi2_calls": plain}))
+                                          "k3_per_stage": k3, "k3_want": k3_want, "plain_psi2_calls": plain}))
     check(psi2.bwd_launches == 0, f"serving launched K2 {psi2.bwd_launches} times")
     for name, n in stage.items():
         check(n >= n_layers, f"{name}: K1 launched {n} times, want >= {n_layers} (one per layer)")
     check(plain == 0, f"psi_statistics took the plain Psi2 path {plain} times on float32 CUDA")
+    check(k3 == k3_want, f"K3 launches by stage {k3}, want {k3_want} (none in the bound, one per moment-matched "
+          f"prediction of a layer: the output layer in predict_train, every layer a step in freerun)")
 
     check(e32.shape == () and bool(torch.isfinite(e32)), f"elbo not a finite scalar: {e32}")
     check(len(wh) == n_layers and all(bool(torch.isfinite(w.W).all()) for w in wh),
@@ -802,7 +895,7 @@ def phase_serving(psi2, psi_stats):
         "predict_train_latency_ms": predict_ms,
     }
     print("serving", json.dumps(serving))
-    return launches
+    return launches, k3
 
 
 def phase_f32_lane(psi2):
@@ -2202,19 +2295,24 @@ def phase_layer_step(psi2, psi_stats):
     return _c5_counts(psi2, psi_stats)
 
 
-def phase_serving_batched(psi2, psi_stats, root, card):
+def phase_serving_batched(psi2, psi_stats, psi2_contract, root, card):
     """Phase 12c: ``serving.serve`` on the anchor (no training): finite
     outputs, element 0 of the batched freerun equal to an unbatched freerun
     of the same inputs under ``_P12_SERVING_RTOL``'s rule (a float64 freerun
-    of the same inputs is the yardstick). Returns (record, launches)."""
+    of the same inputs is the yardstick); K3's launches through ``serve``
+    and the unbatched freerun. Returns (record, launches, K3 launches)."""
+    from torch.utils._pytree import tree_map
+
     from rgp_tpu_torch.bench import serving
     from rgp_tpu_torch.bench.sampling import _flagship
     from rgp_tpu_torch.models import rgp
 
     model = _flagship(0, torch.float32, os.path.join(root, _C5_ANCHOR))
     _c5_zero(psi2, psi_stats)
+    psi2_contract.launches = 0
     rec, (means, variances), Us = serving.serve(model, return_outputs=True, **_P12_SERVING)
     counts = _c5_counts(psi2, psi_stats)
+    k3_serve = psi2_contract.launches
     print("serving batched", json.dumps(rec))
     cfg, params, Y, U, Ut = model[:5]
     B, T_star = _P12_SERVING["batch"], Ut.shape[0]
@@ -2222,8 +2320,23 @@ def phase_serving_batched(psi2, psi_stats, root, card):
     check(bool(torch.isfinite(means).all() and torch.isfinite(variances).all() and (variances > 0).all()),
           "batched freerun: an output is not finite or a variance not positive")
     with torch.no_grad():
+        psi2_contract.launches = 0
         single = rgp.freerun(cfg, params, Y, U, Us[0])
+        k3_single = psi2_contract.launches
         f64 = rgp.freerun(cfg, _cast(params, torch.float64), Y.double(), U.double(), Us[0].double())
+    # the batched steps run eagerly where grad mode is on (no graph replays,
+    # whose launches do not pass the wrapper): one K3 launch a layer a step
+    # for all B candidates
+    psi2_contract.launches = 0
+    with torch.enable_grad():
+        rgp.freerun(cfg, tree_map(lambda x: x.detach() if torch.is_tensor(x) else x, params), Y, U, Us)
+    torch.cuda.synchronize()
+    k3_batched = psi2_contract.launches
+    # serve's eager calls, the untimed one first: freerun and predict_train
+    # repeat + 1 times each (its batched freeruns add their captures)
+    n_layers, calls = cfg.n_hidden + 1, _P12_SERVING["repeat"] + 1
+    k3 = {"serve": k3_serve, "serve_min": calls * (n_layers * T_star + 1), "single_freerun": k3_single,
+          "batched_freerun_eager": k3_batched, "want_a_freerun": n_layers * T_star}
 
     def gap(a, b):
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
@@ -2234,13 +2347,17 @@ def phase_serving_batched(psi2, psi_stats, root, card):
                      "single_vs_f64": gap(single[i], f64[i])}
         row[name]["gate"] = max(_P12_SERVING_RTOL, row[name]["single_vs_f64"])
     timing = {k: v for k, v in rec["details"].items() if "latency" in k or "steps_per_sec" in k}
-    print("serving batched vs single", json.dumps({**row, "launches": counts, **timing, "card": card}))
+    print("serving batched vs single", json.dumps({**row, "launches": counts, "k3_launches": k3, **timing,
+                                                   "card": card}))
     for name, r in row.items():
         check(r["batched_vs_single"] <= r["gate"],
               f"batched freerun element 0: {name}s off the single freerun by {r['batched_vs_single']} of "
               f"the largest (gate {r['gate']})")
     check(counts["k2"] == 0 and counts["plain_psi2_calls"] == 0, f"serving launches {counts}")
-    return rec, counts
+    check(k3_serve >= k3["serve_min"] and k3_single == k3_batched == n_layers * T_star,
+          f"K3 launches {k3}: want one a layer a step in serve's eager freeruns and one a predict_train, and "
+          f"one a layer a step in a freerun, batched over {B} candidates or not")
+    return rec, counts, k3
 
 
 def phase_multimodality(psi2, psi_stats, card):
@@ -2462,15 +2579,16 @@ def phase_all(root, card):
 
 
 def ptxas_report(log):
-    """{compile-time Q width: {"registers", "spill_bytes"}} of each kernel
-    instance, from the ptxas report nvcc wrote beside the library."""
+    """{compile-time Q width (K3: "Q/D"): {"registers", "spill_bytes"}} of
+    each kernel instance, from the ptxas report nvcc wrote beside the
+    library."""
     import re
 
     out, width = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?kernelILi(\d+)E", line)
-        if m:
-            width = int(m.group(1))
+        m = re.search(r"Compiling entry function '.*?kernelILi(\d+)E(?:Li(\d+)E)?", line)
+        if m:  # K3's instances also name their column width: "Q/D"
+            width = int(m.group(1)) if m.group(2) is None else f"{m.group(1)}/{m.group(2)}"
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and width is not None:
@@ -2496,7 +2614,7 @@ def main():
     print(card)  # name and power limit, as nvidia-smi prints them
     from rgp_tpu_torch import linalg  # noqa: F401  (pins TF32 off at import)
     from rgp_tpu_torch.ops import psi_stats
-    from rgp_tpu_torch.ops.cuda import psi2
+    from rgp_tpu_torch.ops.cuda import psi2, psi2_contract
 
     tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
     print("tf32", json.dumps(tf32))
@@ -2513,7 +2631,7 @@ def main():
     t0 = time.perf_counter()
     libs = psi2.build()
     build_s = time.perf_counter() - t0
-    print(f"kernel build (K1, K2 and the exp probe at once): {build_s:.1f} s")
+    print(f"kernel build (K1, K2, K3 and the exp probe at once): {build_s:.1f} s")
     print(f"phase 2: {build_s:.1f} s wall")
     ptxas = {}
     for name, so in libs.items():
@@ -2524,9 +2642,10 @@ def main():
 
     k1_rows = timed("3 (K1)", phase_k1, psi2)
     k2_rows = timed("3 (K2)", phase_k2, psi2)
+    k3_rows = timed("3k (K3)", phase_k3, psi2_contract)
     timed("3 (VJP)", phase_vjp, psi2, psi_stats)
     batched_rows = timed("3d (batched K1/K2)", phase_batched, psi2, card)
-    serving = timed("4", phase_serving, psi2, psi_stats)
+    serving, k3_serving = timed("4", phase_serving, psi2, psi_stats, psi2_contract)
     timed("4 (f32 lane)", phase_f32_lane, psi2)
     training, single_step = timed("5", phase_training, psi2, psi_stats)
     timed("5 (f32 lane)", phase_f32_lane_trained, psi2)
@@ -2548,11 +2667,14 @@ def main():
     print(f"phase 10: {time.perf_counter() - t10:.1f} s wall")
     sharded = timed("11 (sharded paths on ranks)", phase_sharded, psi2, psi_stats, root, card, smc_9d)
     t12 = time.perf_counter()
+    roofline_ops = timed("12a (roofline)", phase_roofline, psi2, psi_stats, card)
+    layer_step = timed("12b (layer step)", phase_layer_step, psi2, psi_stats)
+    _, serving_batched, k3_batched = timed("12c (batched serving)", phase_serving_batched, psi2, psi_stats,
+                                           psi2_contract, root, card)
     p12 = {
-        "roofline_measure_ops": timed("12a (roofline)", phase_roofline, psi2, psi_stats, card),
-        f"layer_step_2shapes_{_P12_LAYER_ITERS}iters": timed("12b (layer step)", phase_layer_step, psi2, psi_stats),
-        f"serving_batched_{_P12_SERVING['batch']}": timed("12c (batched serving)", phase_serving_batched, psi2,
-                                                          psi_stats, root, card)[1],
+        "roofline_measure_ops": roofline_ops,
+        f"layer_step_2shapes_{_P12_LAYER_ITERS}iters": layer_step,
+        f"serving_batched_{_P12_SERVING['batch']}": serving_batched,
         f"multimodality_{_P12_RESTARTS}restarts_{_P12_MM_ITERS}steps": timed(
             "12d (multimodality)", phase_multimodality, psi2, psi_stats, card),
         f"posterior_check_card_{_P12_CARD['chains']}chains": timed("12e (posterior check)", phase_posterior_check,
@@ -2592,6 +2714,23 @@ def main():
             "shapes": rows, "batched": batched, "ptxas": ptxas[name], "card": card,
         }
 
+    k3_main = k3_rows[0]  # (16384, 100, 20, 1): config 1's hidden layer in its rollout cell
+    k3_by_path = {f"serving_{name}": n for name, n in k3_serving.items()}
+    k3_by_path.update({f"serving_batched_{_P12_SERVING['batch']}_{name}": k3_batched[name]
+                       for name in ("serve", "single_freerun", "batched_freerun_eager")})
+    k3_row = {
+        "name": "psi2_contract", "route": "cuda", "source": "rgp_tpu_torch/csrc/psi2_contract.cu",
+        "replaces": "rgp_tpu/inference/collapsed_vi.py::predict_uncertain's Psi2_t and its two einsums (XLA)",
+        "tpu_kernel": None,
+        "launches": sum(k3_by_path.values()), "launches_by_path": k3_by_path,
+        "shape": [k3_main["T"], k3_main["M"], k3_main["Q"], k3_main["D"]],
+        "max_abs_err": k3_main["max_abs_err"], "worst_err_over_tol": k3_main["worst_err_over_tol"],
+        "ms": k3_main["ms"], "device_ms": k3_main["device_ms"], "launches_per_call": k3_main["launches_per_call"],
+        "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+        "library_ms": None, "library_note": "no single PyTorch call computes it",
+        "materialised_ms": k3_main["materialised_ms"], "shapes": k3_rows, "ptxas": ptxas["psi2_contract"],
+        "card": card,
+    }
     print(json.dumps({"kernels": [
         row("psi2_fwd", "rgp_tpu_torch/csrc/psi2_fwd.cu", "rgp_tpu/ops/pallas/psi2.py:147",
             "rgp_tpu/ops/pallas/psi2.py::_psi2_kernel (_psi2_pallas_raw)", training["k1"],
@@ -2607,6 +2746,7 @@ def main():
              "config4_training": config4["k2"], "svgp_uncertain_elbo": uncertain["k2"],
              "config5_potential_auto": c5_potential["k2"], "config5_sample_nuts_4chains": c5_sample["k2"],
              "tempered_loglik_auto": tempered_ll["k2"], "tempered_smc": tempered["k2"], **by_path(1)}, k2_rows),
+        k3_row,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -57,7 +57,8 @@ import torch
 from ..device import resolve_device
 from .sampling import _card
 
-__all__ = ["FP32_OPS_PER_S", "HBM_BYTES_PER_S", "k1_work", "k2_work", "bound_ms", "k1_bound_ms", "k2_bound_ms",
+__all__ = ["FP32_OPS_PER_S", "HBM_BYTES_PER_S", "k1_work", "k2_work", "k3_work", "bound_ms", "k1_bound_ms",
+           "k2_bound_ms", "k3_bound_ms",
            "calibrate", "measure_ops", "report", "capture_trace", "main"]
 
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet: FP32 outside the tensor cores, at 700 W
@@ -99,6 +100,24 @@ def bound_ms(ops, nbytes):
     counts as one) at the FP32 peak and ``nbytes`` at the memory rate."""
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k3_work(T, M, Q, D):
+    """(FP32 operations, exps, bytes) of K3's contraction from (base, E, D1,
+    w, Z, alpha, W): per row t and element (m, n) with m <= n (the weights
+    are symmetrised, so T M(M+1)/2 elements are all it needs) 2Q+5
+    operations and one exp (Q FMAs, then two adds, a subtraction and an FMA
+    for the exponent), then one FMA a column for the weighted sum; each
+    input read once and the (T, D) output written once."""
+    elems = T * M * (M + 1) // 2
+    nbytes = _F32 * (T + T * M + M * M + T * Q + M * Q + M * D + M * M + T * D)
+    return elems * (2 * Q + 5 + 2 * D), elems, nbytes
+
+
+def k3_bound_ms(T, M, Q, D):
+    """Least time for K3's function (:func:`k3_work`) on an H100 SXM."""
+    flops, exps, nbytes = k3_work(T, M, Q, D)
+    return bound_ms(flops + exps, nbytes)
 
 
 def k1_bound_ms(T, M, Q):

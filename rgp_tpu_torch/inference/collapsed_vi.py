@@ -21,10 +21,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
-from ..kernels import Kernel
+from ..kernels import RBF, Kernel
 from ..linalg import cho_solve, hdot, jitchol, log_det_from_chol, solve_triangular
-from ..ops.psi_stats import PsiStats, psi01, psi2_per_t
+from ..ops.psi_stats import PsiStats, psi01, psi2_contracted, psi2_per_t
 from ..params import positive
 from ..utils.profiling import annotate
 
@@ -272,20 +273,45 @@ def predict_quantiles(mean, var, quantiles=(2.5, 97.5)):
     return tuple(mean + float(scipy.stats.norm.ppf(q / 100.0)) * sd for q in quantiles)
 
 
+def _contracts_psi2(kern: Kernel, mu_star, s_star, inputs) -> bool:
+    """Whether :func:`predict_uncertain` contracts each row's Psi2 on the card
+    without forming it: an RBF kernel without active dims, uncertain inputs,
+    a float32 CUDA ``mu_star``, and no gradient asked for (grad mode off, or
+    no tensor of ``inputs`` requiring grad)."""
+    return (isinstance(kern, RBF) and kern.active_dims is None and s_star is not None
+            and mu_star.is_cuda and mu_star.dtype == torch.float32
+            and not (torch.is_grad_enabled()
+                     and any(isinstance(x, torch.Tensor) and x.requires_grad for x in tree_leaves(inputs))))
+
+
 def predict_uncertain(kern: Kernel, kp, Z, log_noise, post: SparsePosterior, mu_star,
                       s_star=None, *, include_noise: bool = False, psi_region=None):
     """Moment-matched predictive at q(x*) = N(mu*, diag(s*)) (batch over rows).
     Returns (mean (T*, D), var (T*, D)). The Psi terms are profiled as the
     region ``psi.per_t``, or run inside ``psi_region()`` where given (where
-    :class:`rgp_tpu_torch.models.rgp.StepGraphs` cuts a step's graphs)."""
+    :class:`rgp_tpu_torch.models.rgp.StepGraphs` cuts a step's graphs).
+
+    Where :func:`_contracts_psi2` holds, the region also holds the
+    contraction: K3 (:func:`rgp_tpu_torch.ops.psi_stats.psi2_contracted`)
+    gives alpha_d^T Psi2_t alpha_d - tr(W Psi2_t) for every row, and Psi2_t
+    is never formed. Elsewhere (the CPU, float64, certain inputs, other
+    kernels, gradients) Psi2_t is formed, (T*, M, M), and contracted by two
+    einsums after the region."""
     noise = positive(log_noise)
+    contract = _contracts_psi2(kern, mu_star, s_star, (kp, Z, log_noise, post, mu_star, s_star))
     with annotate("psi.per_t") if psi_region is None else psi_region():
         psi0, psi1 = psi01(kern, kp, Z, mu_star, s_star)
-        p2t = psi2_per_t(kern, kp, Z, mu_star, s_star)  # (T*, M, M)
+        if contract:
+            quad_trace = psi2_contracted(kp, Z, mu_star, s_star, post.alpha, post.woodbury_inv)  # (T*, D)
+        else:
+            p2t = psi2_per_t(kern, kp, Z, mu_star, s_star)  # (T*, M, M)
     mean = hdot(psi1, post.alpha)  # (T*, D)
-    quad = torch.einsum("md,tmn,nd->td", post.alpha, p2t, post.alpha)
-    trace_term = torch.einsum("mn,tnm->t", post.woodbury_inv, p2t)  # (T*,)
-    var = quad - mean * mean + (psi0 - trace_term)[:, None]
+    if contract:
+        var = quad_trace - mean * mean + psi0[:, None]
+    else:
+        quad = torch.einsum("md,tmn,nd->td", post.alpha, p2t, post.alpha)
+        trace_term = torch.einsum("mn,tnm->t", post.woodbury_inv, p2t)  # (T*,)
+        var = quad - mean * mean + (psi0 - trace_term)[:, None]
     if include_noise:
         var = var + noise
     var = torch.clamp(var, min=1e-12)

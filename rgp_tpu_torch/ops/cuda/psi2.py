@@ -70,10 +70,12 @@ __all__ = [
 ]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-# every CUDA source of the port, built together by :func:`build`; the exp
-# probe (``exp_probe.cu``) is the roofline's instrument, loaded by
+# every CUDA source of the port, built together by :func:`build`; K3
+# (``psi2_contract.cu``) is loaded by :mod:`rgp_tpu_torch.ops.cuda.psi2_contract`,
+# the exp probe (``exp_probe.cu``), the roofline's instrument, by
 # :mod:`rgp_tpu_torch.ops.cuda.exp_probe`
-SOURCES = {"psi2_fwd": CSRC / "psi2_fwd.cu", "psi2_bwd": CSRC / "psi2_bwd.cu", "exp_probe": CSRC / "exp_probe.cu"}
+SOURCES = {"psi2_fwd": CSRC / "psi2_fwd.cu", "psi2_bwd": CSRC / "psi2_bwd.cu",
+           "psi2_contract": CSRC / "psi2_contract.cu", "exp_probe": CSRC / "exp_probe.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 MAX_Q = 128  # kMaxQ in both sources
 _SMS = 132  # SMs of an H100 SXM: the partitions are planned for it on every device

@@ -40,8 +40,9 @@ from ..linalg import hdot
 from ..params import positive
 from ..utils.profiling import annotate
 from .cuda.psi2 import rbf_psi2_sum
+from .cuda.psi2_contract import rbf_psi2_contract
 
-__all__ = ["PsiStats", "psi_statistics", "psi01", "psi2_per_t", "has_closed_psi"]
+__all__ = ["PsiStats", "psi_statistics", "psi01", "psi2_per_t", "psi2_contracted", "has_closed_psi"]
 
 plain_psi2_calls = 0  # uncertain-input RBF Psi2 sums that took the plain path
 
@@ -254,6 +255,14 @@ def psi2_per_t(kern: Kernel, p, Z, mu, s):
             out = part if out is None else out * part
         return out
     raise NotImplementedError(f"psi2 for kernel {type(kern).__name__}")
+
+
+def psi2_contracted(p, Z, mu, s, alpha, W):
+    """sum_{m,n} (alpha_d alpha_d^T - W)[m,n] Psi2_t[m,n] (T, D) of an RBF
+    kernel without active dims, at float32 uncertain inputs on the card, by
+    K3 (:mod:`rgp_tpu_torch.ops.cuda.psi2_contract`): the per-step Psi2 of
+    :func:`psi2_per_t` contracted as it is computed, never formed."""
+    return rbf_psi2_contract(p, Z, mu, _broadcast_s(mu, s), alpha, W)
 
 
 def _psi01(kern: Kernel, p, Z, mu, s):
